@@ -4,19 +4,36 @@
 Phases, one output line each:
 
 1. the card (name and power limit from nvidia-smi) and the build of
-   kernel K1 from the CUDA source in this checkout;
+   kernels K1 and K2 from the CUDA sources in this checkout (one nvcc
+   each, started together), with ptxas's registers per instantiation;
 2. K1 against its plain PyTorch version at the main path's shapes
    (1,000,000 docs padded to 1,007,616 rows, D=384, 8 and 64 queries,
    fp32 and bf16, odd n_valid, duplicate rows), the whole two-phase
    top-k against a float64 brute force, and both versions' times;
-3. a synthetic store made from --seed (default 1,000,000 docs), saved
-   with the port's VectorStore.save under build/ and loaded back;
+2b. K1's int8 variant against its plain version on phase 2's docs
+   quantized per segment: int32 maps bit-equal, the int8 two-phase
+   top-20 equal to an int8-metric brute force, both versions' times;
+2c. K2 against its plain version on 1,000,000 PQ codes (m=48) of a
+   clustered corpus, pq_topk's top-20 against a float64 ADC brute
+   force, and both versions' times there and on 10,000,000 codes;
+2d. the PQ/IVF recovery workload of scripts/exp_ivf_recovery.py on the
+   card (1,048,576 clustered docs, 64 queries, post-rescore recall@10
+   at oversample 64, flat and at 512 probes);
+3. a synthetic store made from --seed (default 1,000,000 docs) with
+   its PQ and IVF artifacts, saved with the port's VectorStore.save
+   under build/ and loaded back;
 4. the port's LegalEngine on the card behind the HTTP server: three
    POST /api/v1/query requests (victim narrative, procedural, heading)
    and one POST /api/v1/batch_search, each checked for its planted
    doc, with K1's launch count over exactly that run;
 5. the same search_batch calls through a second engine on the CPU,
-   equal to the card's under the tie-aware rule.
+   equal to the card's under the tie-aware rule;
+6. the PQ + IVF engine behind the HTTP server (the same requests and
+   checks), then the int8 and the flat PQ engines through
+   search_batch, with K2's and K1-int8's launch counts over those runs;
+7. each quantized tier's search_batch on the card equal to a CPU
+   engine's under the tie-aware rule, and the int8 engine's weighted
+   results equal to the fp32 engine's.
 
 Then a JSON line with each kernel's launches, error and times, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -47,6 +64,16 @@ PRIMARY = (VICTIM, PROCEDURAL, HEADING)
 N_ROWS, N_VALID, DIM = 1_007_616, 1_000_000, 384
 SEG_TOL = 1e-5      # K1 vs plain: fp32 sums of 384 products of unit-vector
                     # entries (|score| <= 1) in another order
+PQ_TOL = 1e-5       # K2 vs plain: fp32 sums of 96 bf16 table entries
+                    # (|score| ~ 1) in another order
+PQ_M = 48
+N_PQ, N_PQ_BIG = 1_000_000, 10_000_000
+RECOVERY_N, RECOVERY_Q, RECOVERY_OVERSAMPLE = 1 << 20, 64, 64
+RECOVERY_FLOOR = {"flat": 0.99, "ivf512": 0.94}      # the tier's recall floors
+RECOVERY_REPO = {"flat": 1.0, "ivf512": 0.958}       # EVAL_IVF_RECOVERY.json
+# RRF values change by at most this when a near-tie in one channel
+# lets a doc trade one place with its neighbour
+RRF_SWAP = 1.0 / 61 - 1.0 / 62
 TOPK_TOL = 1e-5     # tie band of tests/test_dense.py
 DENSE_TOL = 1e-5    # GPU vs CPU engine: query embeddings and dot products
                     # in fp32 with other summation orders
@@ -74,7 +101,13 @@ def time_cuda(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 def assert_topk_equiv(torch, q, docs, n_valid, k, got_s, got_i):
     """Tie-aware exact top-k against float64 (tests/test_dense.py rule)."""
-    s64 = q.double() @ docs[:n_valid].double().T
+    assert_topk_equiv_scores(torch, q.double() @ docs[:n_valid].double().T,
+                             k, got_s, got_i)
+
+
+def assert_topk_equiv_scores(torch, s64, k, got_s, got_i):
+    """The tie-aware rule against given float64 scores ``s64 [Q, N]``."""
+    n_valid = s64.shape[1]
     srt = torch.topk(s64, k, dim=1).values
     kth = srt[:, k - 1:k]
     got_s = got_s.double()
@@ -85,7 +118,7 @@ def assert_topk_equiv(torch, q, docs, n_valid, k, got_s, got_i):
     check(float((got_s - got_true).abs().max()) <= TOPK_TOL, "top-k scores")
     check(bool((got_s[:, 1:] - got_s[:, :-1] <= TOPK_TOL).all()), "order")
     check(bool((got_true >= kth - TOPK_TOL).all()), "id below the tie band")
-    for qi in range(q.shape[0]):
+    for qi in range(s64.shape[0]):
         must = torch.nonzero(s64[qi] > kth[qi] + TOPK_TOL).flatten()
         check(set(must.tolist()) <= set(got_i[qi].tolist()), "missing hit")
 
@@ -137,7 +170,181 @@ def phase_kernel(torch, seed: int):
                 "twophase_ms": two, "matmul_topk_ms": full,
             }
         del docs
+    return max_err, times, docs32
+
+
+def phase_kernel_int8(torch, docs32, seed: int):
+    """K1-int8 against its plain version on ``docs32`` quantized per
+    segment (the int8 tier's ShardedIndex); returns the times."""
+    from legal_rag_tpu_torch.ops.dense import (
+        dense_topk_twophase_rm, quantize_queries, sort_score_desc_id_asc,
+    )
+    from legal_rag_tpu_torch.ops.segmax_rm import (
+        segmax_rm, segmax_rm_reference,
+    )
+    from legal_rag_tpu_torch.parallel.sharded import ShardedIndex
+
+    dev = torch.device("cuda")
+    idx = ShardedIndex.from_embeddings(docs32.cpu().numpy(), dtype="int8",
+                                       device=dev)
+    check(idx.docs.shape == (N_ROWS, DIM), "int8 index shape")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    max_err, times = 0, {}
+    for qp in (8, 64):
+        q = torch.randn(qp, DIM, generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        q[1] = docs32[123]
+        q_i8, q_scale = quantize_queries(q)
+        for n_valid in (N_VALID, N_VALID + 3):
+            got = segmax_rm(q_i8, idx.docs, n_valid)
+            ref = segmax_rm_reference(q_i8, idx.docs, n_valid)
+            torch.cuda.synchronize()
+            check(got.dtype == ref.dtype == torch.int32, "K1-int8 dtype")
+            check(got.shape == (qp, N_ROWS // 8), "K1-int8 shape")
+            check(torch.equal(got, ref), f"K1-int8 Q={qp} n_valid {n_valid}: "
+                  f"{int((got != ref).sum())} map entries differ")
+            max_err = max(max_err, int((got - ref).abs().max()))
+        # the two-phase top-20 is the exact top-20 of the int8 metric
+        s, i = dense_topk_twophase_rm(q, idx.docs, 20, n_valid=N_VALID,
+                                      doc_scales=idx.doc_scales)
+        acc = q_i8.float() @ idx.docs[:N_VALID].float().T
+        full = acc * q_scale[:, None] * idx.doc_scales[:N_VALID][None, :]
+        ids = torch.arange(N_VALID, device=dev).expand(qp, N_VALID)
+        want_s, want_i = sort_score_desc_id_asc(full, ids)
+        check(torch.equal(i.long(), want_i[:, :20]), "int8 top-20 ids")
+        check(torch.equal(s, want_s[:, :20]), "int8 top-20 scores")
+        k1 = lambda: segmax_rm(q_i8, idx.docs, N_VALID)
+        plain = lambda: segmax_rm_reference(q_i8, idx.docs, N_VALID)
+        p1, k1a, k1b, p2 = (time_cuda(torch, f) for f in (plain, k1, k1, plain))
+        two = time_cuda(torch, lambda: dense_topk_twophase_rm(
+            q, idx.docs, 32, n_valid=N_VALID, doc_scales=idx.doc_scales))
+        times[qp] = {"k1_ms": (k1a + k1b) / 2, "plain_ms": (p1 + p2) / 2,
+                     "twophase_ms": two}
     return max_err, times
+
+
+def recovery_corpus(seed: int):
+    """scripts/exp_ivf_recovery.py's corpus: 2048 Gaussian centers,
+    docs = center + 0.3 noise, queries = a doc + 0.05 noise, unit rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, q, d = RECOVERY_N, RECOVERY_Q, DIM
+    centers = rng.standard_normal((2048, d)).astype(np.float32)
+    docs = centers[rng.integers(0, 2048, n)] + 0.3 * (
+        rng.standard_normal((n, d)).astype(np.float32)
+    )
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    qs = docs[rng.integers(0, n, q)] + 0.05 * (
+        rng.standard_normal((q, d)).astype(np.float32)
+    )
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    return docs, qs
+
+
+def adc_scores64(torch, lut64, codes, block: int = 8192):
+    """float64 ADC brute force: ``[Q, N]`` sums of the table entries."""
+    from legal_rag_tpu_torch.ops.pq_segmax import unpack_nibbles
+
+    q, n_sub, _ = lut64.shape
+    flat = lut64.reshape(q, n_sub * 16)
+    base = torch.arange(n_sub, device=codes.device) * 16
+    out = torch.empty((q, codes.shape[0]), dtype=torch.float64,
+                      device=codes.device)
+    for lo in range(0, codes.shape[0], block):
+        idx = unpack_nibbles(codes[lo:lo + block]) + base
+        out[:, lo:lo + idx.shape[0]] = flat[:, idx].sum(dim=2)
+    return out
+
+
+def phase_pq(torch, seed: int):
+    """K2 against its plain version and the recovery workload, on the
+    recovery corpus trained and coded by the port on the card."""
+    import numpy as np
+
+    from legal_rag_tpu_torch.ops.dense import exact_rescore
+    from legal_rag_tpu_torch.ops.pq import (
+        build_ivf, encode_pq, pq_ivf_topk, pq_lut, pq_topk, train_pq,
+    )
+    from legal_rag_tpu_torch.ops.pq_segmax import (
+        pq_segmax, pq_segmax_reference,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    docs, qs = recovery_corpus(seed)
+    t_data = time.time() - t0
+    t0 = time.time()
+    cb = train_pq(docs, m=PQ_M, iters=15, sample=32768, opq_iters=4,
+                  device=dev)
+    codes = encode_pq(docs, cb, device=dev)
+    ivf = build_ivf(docs, cb, codes, cell_size=1024, device=dev)
+    t_train = time.time() - t0
+    check(ivf.n_cells == RECOVERY_N // 1024, "IVF cells")
+
+    # -- K2 against its plain version, and pq_topk against float64 ADC
+    codes_d = torch.from_numpy(codes).to(dev)
+    codes_1m = codes_d[:N_PQ]
+    cbs = torch.from_numpy(cb.codebooks).to(dev)
+    qrot = torch.from_numpy(cb.rotate(qs)).to(dev)
+    max_err, times = 0.0, {}
+    for qp in (8, 64):
+        q = qrot[:qp].contiguous()
+        lut = pq_lut(q, cbs).to(torch.bfloat16).contiguous()
+        got = pq_segmax(lut, codes_1m)
+        ref = pq_segmax_reference(lut, codes_1m)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape == (qp, N_PQ // 8), "K2 shape")
+        check(bool(torch.isfinite(got).all()), "K2 non-finite")
+        err = float((got - ref).abs().max())
+        check(err <= PQ_TOL, f"K2 Q={qp} error {err}")
+        max_err = max(max_err, err)
+        s, i = pq_topk(q, codes_1m, cbs, 20)
+        lut64 = torch.einsum("qmd,mcd->qmc",
+                             q.double().reshape(qp, 2 * PQ_M, -1),
+                             cbs.double())
+        assert_topk_equiv_scores(torch, adc_scores64(torch, lut64, codes_1m),
+                                 20, s, i)
+        k2 = lambda: pq_segmax(lut, codes_1m)
+        plain = lambda: pq_segmax_reference(lut, codes_1m)
+        p1, ka, kb, p2 = (time_cuda(torch, f) for f in (plain, k2, k2, plain))
+        top = time_cuda(torch, lambda: pq_topk(q, codes_1m, cbs, 20))
+        times[(N_PQ, qp)] = {"k2_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
+                             "pq_topk_ms": top}
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    big = torch.randint(0, 256, (N_PQ_BIG, PQ_M), generator=g, device=dev,
+                        dtype=torch.uint8)
+    for qp in (8, 64):
+        lut = pq_lut(qrot[:qp], cbs).to(torch.bfloat16).contiguous()
+        k2 = lambda: pq_segmax(lut, big)
+        plain = lambda: pq_segmax_reference(lut, big)
+        p1, ka, kb, p2 = (time_cuda(torch, f, iters=5, warmup=1)
+                          for f in (plain, k2, k2, plain))
+        times[(N_PQ_BIG, qp)] = {"k2_ms": (ka + kb) / 2,
+                                 "plain_ms": (p1 + p2) / 2}
+    del big
+
+    # -- recovery: post-rescore recall@10 at oversample 64
+    k = 10
+    kk = k * RECOVERY_OVERSAMPLE
+    sc = qrot.new_tensor(qs) @ torch.from_numpy(docs).to(dev).T
+    gold = torch.sort(sc, dim=1, descending=True, stable=True).indices[:, :k]
+    gold = [set(row) for row in gold.cpu().tolist()]
+    del sc
+    recall = {}
+    for name in ("flat", "ivf512"):
+        if name == "flat":
+            _, cand = pq_topk(qrot, codes_d, cbs, kk)
+        else:
+            _, cand = pq_ivf_topk(qrot, ivf, cb.codebooks, kk, probes=512)
+        _, top, _, _ = exact_rescore(qs, cand.cpu().numpy(), docs, k=k)
+        recall[name] = float(np.mean([
+            len(set(row.tolist()) & want) / k for row, want in zip(top, gold)
+        ]))
+        check(recall[name] >= RECOVERY_FLOOR[name],
+              f"recovery {name}: recall@10 {recall[name]} < "
+              f"{RECOVERY_FLOOR[name]}")
+    return max_err, times, recall, (t_data, t_train)
 
 
 def post(url: str, payload) -> dict:
@@ -279,17 +486,49 @@ def phase_store(n_docs: int, seed: int, device: str):
     return store, expansions
 
 
-def phase_serve(store, n_docs: int, device: str):
-    """Drive the main path over HTTP; returns the engine and K1's
-    launch count over exactly that run."""
+def reset_counts() -> None:
+    from legal_rag_tpu_torch.ops.pq_segmax import K2
+    from legal_rag_tpu_torch.ops.segmax_rm import K1
+
+    K1.launches = K1.int8_launches = K2.launches = 0
+
+
+def read_counts() -> dict:
+    from legal_rag_tpu_torch.ops.pq_segmax import K2
+    from legal_rag_tpu_torch.ops.segmax_rm import K1
+
+    return {"K1": K1.launches, "K1-int8": K1.int8_launches,
+            "K2": K2.launches}
+
+
+def tier_config(dtype: str, **dense):
+    import dataclasses
+
+    from legal_rag_tpu_torch.retrieval.engine import DEFAULT_CONFIG
+
+    return dataclasses.replace(DEFAULT_CONFIG, dense=dataclasses.replace(
+        DEFAULT_CONFIG.dense, dtype=dtype, **dense))
+
+
+def pq_ivf_config():
+    """The documented 1M settings of the PQ + IVF tier (config.py:40-51):
+    512 probes with 64x oversampling."""
+    return tier_config("pq", ivf_probes=512, pq_oversample=64)
+
+
+def phase_serve(store, n_docs: int, device: str, config=None,
+                kernel: str = "K1", phase: int = 4):
+    """Drive the main path over HTTP; returns the engine and the launch
+    counts over exactly that run (``kernel`` must have launched at
+    least once per device search)."""
     import torch
 
     from legal_rag_tpu_torch.cli import BackgroundServer
     from legal_rag_tpu_torch.index.synthetic import planted_ids
-    from legal_rag_tpu_torch.ops.segmax_rm import K1
     from legal_rag_tpu_torch.retrieval.facade import LegalEngine
 
-    legal = LegalEngine(store=store, use_llm=False, device=device)
+    kw = {} if config is None else {"config": config}
+    legal = LegalEngine(store=store, use_llm=False, device=device, **kw)
     engine = legal.engine
     engine.enable_request_coalescing()
     ce = legal.orchestrator.reranker
@@ -304,7 +543,7 @@ def phase_serve(store, n_docs: int, device: str):
     ce.score_pairs = counted_score_pairs
     server = BackgroundServer(legal)
     try:
-        K1.launches = 0
+        reset_counts()
         engine.device_dispatches = 0
         t0 = time.time()
         answers = [post(f"{server.url}/api/v1/query", {"query": q})
@@ -313,7 +552,7 @@ def phase_serve(store, n_docs: int, device: str):
                      {"queries": list(PRIMARY), "k": 5})
         if device == "cuda":
             torch.cuda.synchronize()
-        launches, dispatches = K1.launches, engine.device_dispatches
+        counts, dispatches = read_counts(), engine.device_dispatches
         n_ce = len(ce_calls)
         wall = time.time() - t0
         with urllib.request.urlopen(f"{server.url}/health", timeout=60) as r:
@@ -337,16 +576,19 @@ def phase_serve(store, n_docs: int, device: str):
     stages = health["stage_latency"]
     check(health["engine_status"] == "ready" and "device_search" in stages,
           "health")
-    print(f"phase 4 ok: 3 /api/v1/query + 1 /api/v1/batch_search answered "
-          f"200 in {wall:.2f} s with planted docs found; {dispatches} device "
-          f"searches, K1 launched {launches}x; cross-encoder scored "
+    tier = engine.config.dense.dtype + (
+        " + IVF" if engine.index.ivf_centroids is not None else "")
+    print(f"phase {phase} ok: {tier} engine: 3 /api/v1/query + 1 "
+          f"/api/v1/batch_search answered 200 in {wall:.2f} s with planted "
+          f"docs found; {dispatches} device searches, {kernel} launched "
+          f"{counts[kernel]}x; cross-encoder scored "
           f"{n_ce} pools (rerank_score present); mean stage ms: "
           + ", ".join(f"{k} {v['mean_ms']:.2f}" for k, v in stages.items()),
           flush=True)
     if device == "cuda":
-        check(launches >= dispatches, f"K1 launched {launches} times for "
-              f"{dispatches} device searches")
-    return engine, launches
+        check(counts[kernel] >= dispatches, f"{kernel} launched "
+              f"{counts[kernel]} times for {dispatches} device searches")
+    return engine, counts
 
 
 def phase_compare(store, engine, expansions):
@@ -384,6 +626,176 @@ def phase_compare(store, engine, expansions):
           flush=True)
 
 
+TIER_CALLS = (
+    (list(PRIMARY), 16, [0.0] * 3, "weighted"),
+    (list(PRIMARY), 5, [0.5] * 3, "weighted"),
+    (list(PRIMARY), 5, [0.5] * 3, "rrf"),
+    ([HEADING], 16, [0.5], "weighted"),
+    ([PROCEDURAL], 16, [0.6], "rrf"),
+)
+
+
+def phase_tiers(store, n_docs: int, device: str = "cuda"):
+    """The int8 and the flat PQ engines on the card through search_batch
+    (planted docs first); returns the engines and the launch counts."""
+    import torch
+
+    from legal_rag_tpu_torch.index.synthetic import planted_ids
+    from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
+
+    plant = planted_ids(n_docs, len(PRIMARY))
+    engines, counts = {}, {}
+    for name, cfg, kernel in (
+        ("int8", tier_config("int8"), "K1-int8"),
+        ("pq", tier_config("pq", use_ivf=False, pq_oversample=64), "K2"),
+    ):
+        engine = RetrievalEngine(store, config=cfg, device=device)
+        check(engine.index.ivf_centroids is None, f"{name}: unexpected IVF")
+        reset_counts()
+        engine.device_dispatches = 0
+        for queries, k, w, mode in TIER_CALLS:
+            rows = engine.search_batch(queries, k=k, hybrid_weights=w,
+                                       mode=mode)
+            for q, row in zip(queries, rows):
+                j = PRIMARY.index(q)
+                check(bool(row) and row[0].doc_id == plant[j],
+                      f"{name} {mode}: planted doc {plant[j]} not first for "
+                      f"{q[:24]!r}: {[r.doc_id for r in row]}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts[name] = read_counts()
+        n = counts[name][kernel]
+        check(device != "cuda" or n >= engine.device_dispatches > 0,
+              f"{name}: {kernel} launched {n}x for "
+              f"{engine.device_dispatches} device searches")
+        engines[name] = engine
+    print(f"phase 6b ok: int8 and flat PQ engines, {len(TIER_CALLS)} "
+          f"search_batch calls each with planted docs first; K1-int8 "
+          f"launched {counts['int8']['K1-int8']}x, K2 "
+          f"{counts['pq']['K2']}x", flush=True)
+    return engines, counts
+
+
+def assert_rows_close(dev_rows, cpu_rows, mode, tols, what):
+    """Two engines' rows: fused scores equal rank by rank within the
+    query's tolerance (RRF: within one place's worth, ``RRF_SWAP``, for
+    docs a near-tie let trade places in one channel); where ids differ,
+    the other side holds the doc at a rank of equal score, or both
+    split a tie at the end of the list. Returns the ranks that differ."""
+    swaps = 0
+    for qi, (g, h) in enumerate(zip(dev_rows, cpu_rows)):
+        check(len(g) == len(h), f"{what}: query {qi}: result counts differ")
+        tol = tols[qi] if mode == "weighted" else RRF_SWAP + 1e-6
+        got = [(r.doc_id, r.score) for r in g]
+        want = [(r.doc_id, r.score) for r in h]
+        for rank, ((a, fa), (b, fb)) in enumerate(zip(got, want)):
+            check(abs(fa - fb) <= tol, f"{what}: query {qi} rank {rank}: "
+                  f"{got} vs {want}")
+            if a != b:
+                swaps += 1
+                other = {d: f for d, f in want}
+                check((a in other and abs(other[a] - fa) <= tol)
+                      or fa <= want[-1][1] + tol,
+                      f"{what}: query {qi} rank {rank}: {got} vs {want}")
+    return swaps
+
+
+def phase_compare_tiers(store, tier_engines, ivf_engine, fp32_engine,
+                        expansions):
+    """Each quantized tier on the card against the same tier on the
+    CPU, and the int8 engine's weighted results against fp32's."""
+    from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
+
+    checked, swaps = 0, 0
+    cpu_cfg = {"int8": tier_config("int8"),
+               "pq": tier_config("pq", use_ivf=False, pq_oversample=64),
+               "pq+ivf": pq_ivf_config()}
+    card = dict(tier_engines, **{"pq+ivf": ivf_engine})
+    calls = list(TIER_CALLS)
+    for name, engine in card.items():
+        cpu = RetrievalEngine(store, config=cpu_cfg[name], device="cpu")
+        cfg = cpu.config
+        for queries, k, w, mode in calls:
+            dev_rows = engine.search_batch(queries, k=k, hybrid_weights=w,
+                                           mode=mode)
+            cpu_rows = cpu.search_batch(queries, k=k, hybrid_weights=w,
+                                        mode=mode)
+            channels = channel_scores(store, cpu.encoder, queries,
+                                      cfg.bm25.postings_budget_cap, False)
+            tols = [fused_tol(ch, mode, wi) for ch, wi in zip(channels, w)]
+            swaps += assert_rows_close(dev_rows, cpu_rows, mode, tols,
+                                       f"{name} {mode} {queries[0][:24]!r}")
+            if name == "int8" and mode == "weighted" and not any(w):
+                # with the fp32 rescore int8 gives fp32's results when
+                # the oversampled candidates cover fp32's dense pool:
+                # assured for dense-only fusion; with a BM25 weight the
+                # device fuses before the rescore narrows the pool, so
+                # the pools may differ (in the JAX engine as well)
+                want = fp32_engine.search_batch(queries, k=k,
+                                                hybrid_weights=w, mode=mode)
+                swaps += assert_rows_close(dev_rows, want, mode, tols,
+                                           f"int8 vs fp32 {queries[0][:24]!r}")
+                check([[r.doc_id for r in row] for row in dev_rows]
+                      == [[r.doc_id for r in row] for row in want],
+                      "int8 weighted ids != fp32 ids")
+            checked += 1
+        del cpu
+    print(f"phase 7 ok: {checked} search_batch calls over the int8, flat PQ "
+          f"and PQ + IVF tiers on the card equal the CPU engines' under the "
+          f"tie-aware rule ({swaps} ranks hold tied docs in another order); "
+          f"int8 weighted (dense-only) ids equal the fp32 engine's",
+          flush=True)
+
+
+def ptxas_registers(log: str) -> str:
+    """``kernel<template args>: N`` for every instantiation in an nvcc
+    ``-Xptxas -v`` log."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
+        if m:
+            # a mangled name is <length><identifier>...: find the
+            # identifier ending in _kernel, then its template arguments
+            mangled, name = m.group(1), "?"
+            end = mangled.find("_kernelI") + len("_kernel")
+            for size in range(len("_kernel"), end):
+                if mangled[:end - size].endswith(str(size)):
+                    args = re.match(r"I(\w*?)EEv", mangled[end:])
+                    args = args.group(1) if args else ""
+                    args = re.sub(r"^f", "f32,", args)
+                    args = args.replace("13__nv_bfloat16", "bf16,")
+                    args = re.sub(r"Li(\d+)E", r"\1,", args).strip(",")
+                    name = f"{mangled[end - size:end]}<{args}>"
+                    break
+        elif name and "Used " in ln:
+            out.append(f"{name}: {ln.split('Used ')[1].split(' registers')[0]}")
+            name = None
+    return ", ".join(out)
+
+
+def build_kernels() -> dict:
+    """Build K1 and K2 at once (one nvcc each); returns, per kernel, its
+    source, build seconds and ptxas registers per instantiation."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from legal_rag_tpu_torch.ops.pq_segmax import K2
+    from legal_rag_tpu_torch.ops.segmax_rm import K1
+
+    def build(kernel):
+        t0 = time.time()
+        kernel.library()
+        return time.time() - t0
+
+    kernels = {"K1": (K1, "segmax_rm.cu"), "K2": (K2, "pq_segmax.cu")}
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        secs = {n: pool.submit(build, k) for n, (k, _) in kernels.items()}
+        secs = {n: f.result() for n, f in secs.items()}
+    return {n: (src, secs[n], ptxas_registers(k.build_log))
+            for n, (k, src) in kernels.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
@@ -397,7 +809,6 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO_ROOT)
-    from legal_rag_tpu_torch.ops.segmax_rm import K1
 
     t_start = time.time()
     kind = torch.cuda.get_device_name(0)
@@ -408,17 +819,15 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    t0 = time.time()
-    K1.library()
-    regs = [ln.split("Used ")[1].split(",")[0] for ln in K1.build_log.splitlines()
-            if "Used " in ln]
+    built = build_kernels()
     print(f"phase 1 ok: {kind}, torch {torch.__version__} (CUDA "
-          f"{torch.version.cuda}); K1 built from legal_rag_tpu_torch/csrc/"
-          f"segmax_rm.cu in {time.time() - t0:.2f} s (ptxas: {len(regs)} "
-          f"instantiations, {', '.join(sorted(set(regs)))})", flush=True)
+          f"{torch.version.cuda}); " + "; ".join(
+              f"{name} built from legal_rag_tpu_torch/csrc/{src} in "
+              f"{secs:.2f} s (ptxas registers: {regs})"
+              for name, (src, secs, regs) in built.items()), flush=True)
 
     # -- 2. K1 against its plain version at the main path's shapes
-    max_err, times = phase_kernel(torch, args.seed)
+    max_err, times, docs32 = phase_kernel(torch, args.seed)
     parts = "; ".join(
         f"{tag} Q={qp}: K1 {t['k1_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
         f"two-phase top-32 {t['twophase_ms']:.4f} ms, matmul top-32 "
@@ -429,27 +838,91 @@ def main() -> int:
           f"{max_err:.3g}) at N={N_ROWS}, n_valid {N_VALID} and {N_VALID + 3}; "
           f"two-phase top-20 == float64 under the tie rule; {parts}", flush=True)
 
-    # -- 3. synthetic store at serving scale
+    # -- 2b. K1-int8 against its plain version on the same docs
+    err_i8, times_i8 = phase_kernel_int8(torch, docs32, args.seed)
+    del docs32
+    torch.cuda.empty_cache()
+    print(f"phase 2b ok: K1-int8 == plain bit for bit (max abs err {err_i8}) "
+          f"at N={N_ROWS}, D={DIM}, n_valid {N_VALID} and {N_VALID + 3}; "
+          f"int8 two-phase top-20 == the int8-metric brute force; " + "; ".join(
+              f"Q={qp}: K1-int8 {t['k1_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, two-phase top-32 {t['twophase_ms']:.4f} ms"
+              for qp, t in times_i8.items()), flush=True)
+
+    # -- 2c/2d. K2 against its plain version, and the recovery workload
+    err_pq, times_pq, recall, (t_data, t_train) = phase_pq(torch, args.seed)
+    torch.cuda.empty_cache()
+    print(f"phase 2c ok: K2 == plain within {PQ_TOL} (max abs err "
+          f"{err_pq:.3g}) on {N_PQ} codes (m={PQ_M}); pq_topk top-20 == "
+          f"float64 ADC under the tie rule; " + "; ".join(
+              f"N={n} Q={qp}: K2 {t['k2_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms"
+              + (f", pq_topk top-20 {t['pq_topk_ms']:.4f} ms"
+                 if "pq_topk_ms" in t else "")
+              for (n, qp), t in times_pq.items()), flush=True)
+    print(f"phase 2d ok: recovery workload ({RECOVERY_N} clustered docs, "
+          f"{RECOVERY_Q} queries, corpus {t_data:.1f} s, PQ + OPQ + IVF "
+          f"trained and coded on the card in {t_train:.1f} s): post-rescore "
+          f"recall@10 at oversample {RECOVERY_OVERSAMPLE}: " + ", ".join(
+              f"{name} {recall[name]} (floor {RECOVERY_FLOOR[name]}, "
+              f"EVAL_IVF_RECOVERY.json {RECOVERY_REPO[name]})"
+              for name in recall), flush=True)
+
+    # -- 3. synthetic store at serving scale, with PQ and IVF artifacts
     store, expansions = phase_store(args.docs, args.seed, "cuda")
+    check(store.pq_codes is not None and store.ivf_centroids is not None,
+          "store lacks its PQ/IVF artifacts")
 
     # -- 4. the port's main path: HTTP server over the engine on the card
-    engine, launches = phase_serve(store, args.docs, "cuda")
+    engine, counts = phase_serve(store, args.docs, "cuda")
 
     # -- 5. the same searches through a second engine on the CPU
     phase_compare(store, engine, expansions)
 
+    # -- 6. the PQ + IVF engine over HTTP, then the int8 and flat PQ tiers
+    ivf_engine, ivf_counts = phase_serve(store, args.docs, "cuda",
+                                         config=pq_ivf_config(), kernel="K2",
+                                         phase=6)
+    check(ivf_engine.index.ivf_centroids is not None, "PQ engine without IVF")
+    tier_engines, tier_counts = phase_tiers(store, args.docs)
+
+    # -- 7. each quantized tier on the card against the CPU
+    phase_compare_tiers(store, tier_engines, ivf_engine, engine, expansions)
+
     check("jax" not in sys.modules, "the run imported jax")
     main_t = times[("fp32", 8)]
-    print(json.dumps({"kernels": [{
-        "name": "segmax_rm (K1)",
-        "route": "cuda",
-        "source": "legal_rag_tpu_torch/csrc/segmax_rm.cu",
-        "replaces": "legal_rag_tpu/ops/dense.py:495",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_t["k1_ms"],
-        "plain_ms": main_t["plain_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "segmax_rm (K1)",
+            "route": "cuda",
+            "source": "legal_rag_tpu_torch/csrc/segmax_rm.cu",
+            "replaces": "legal_rag_tpu/ops/dense.py:495",
+            "launches": counts["K1"],
+            "max_abs_err": max_err,
+            "ms": main_t["k1_ms"],
+            "plain_ms": main_t["plain_ms"],
+        },
+        {
+            "name": "segmax_rm int8 (K1-int8)",
+            "route": "cuda",
+            "source": "legal_rag_tpu_torch/csrc/segmax_rm.cu",
+            "replaces": "legal_rag_tpu/ops/dense.py:515",
+            "launches": tier_counts["int8"]["K1-int8"],
+            "max_abs_err": err_i8,
+            "ms": times_i8[8]["k1_ms"],
+            "plain_ms": times_i8[8]["plain_ms"],
+        },
+        {
+            "name": "pq_segmax (K2)",
+            "route": "cuda",
+            "source": "legal_rag_tpu_torch/csrc/pq_segmax.cu",
+            "replaces": "legal_rag_tpu/ops/pq.py:257",
+            "launches": ivf_counts["K2"] + tier_counts["pq"]["K2"],
+            "max_abs_err": err_pq,
+            "ms": times_pq[(N_PQ, 8)]["k2_ms"],
+            "plain_ms": times_pq[(N_PQ, 8)]["plain_ms"],
+        },
+    ]}))
     print(f"total {time.time() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -5,13 +5,15 @@ build``), warms the serving path up, and serves the HTTP API of
 ``legal_rag_tpu.server.app`` with the port's engine injected. Honours
 ``LEGAL_RAG_NO_RERANK=1`` (serve without the cross-encoder) and
 ``LEGAL_RAG_NO_COALESCE=1`` (one device dispatch per request) as the
-JAX server does.
+JAX server does. ``--dense-dtype {float32,bfloat16,int8,pq}`` (or
+``LEGAL_RAG_DENSE_DTYPE``) picks the dense storage tier.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import logging
 import os
 import socket
@@ -31,14 +33,34 @@ WARMUP_QUERIES = (
 )
 
 
-def load_engine(store_dir: str, device: str):
+DENSE_DTYPES = ("float32", "bfloat16", "int8", "pq")
+
+
+def serving_config(dense_dtype: Optional[str] = None):
+    """The default retrieval config with the dense storage tier set by
+    ``dense_dtype``, else by ``LEGAL_RAG_DENSE_DTYPE``, else unchanged."""
+    from legal_rag_tpu.config import DEFAULT_CONFIG
+
+    dtype = dense_dtype or os.environ.get("LEGAL_RAG_DENSE_DTYPE")
+    if not dtype:
+        return DEFAULT_CONFIG
+    if dtype not in DENSE_DTYPES:
+        raise ValueError(f"dense dtype {dtype!r} not in {DENSE_DTYPES}")
+    return dataclasses.replace(
+        DEFAULT_CONFIG,
+        dense=dataclasses.replace(DEFAULT_CONFIG.dense, dtype=dtype),
+    )
+
+
+def load_engine(store_dir: str, device: str, dense_dtype: Optional[str] = None):
     """The serving engine, warmed up, with request coalescing unless
     ``LEGAL_RAG_NO_COALESCE=1``."""
     from legal_rag_tpu.server.source_fetcher import set_default_catalog
     from legal_rag_tpu_torch.retrieval.facade import LegalEngine
 
     rerank = False if os.environ.get("LEGAL_RAG_NO_RERANK", "") == "1" else None
-    engine = LegalEngine(store_dir=store_dir, rerank=rerank, device=device)
+    engine = LegalEngine(store_dir=store_dir, rerank=rerank, device=device,
+                         config=serving_config(dense_dtype))
     set_default_catalog(engine.engine.store.chunks)
     t0 = time.time()
     for q in WARMUP_QUERIES:
@@ -117,6 +139,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     serve.add_argument("--port", type=int, default=8000)
     serve.add_argument("--device", default="cuda",
                        help="torch device for the encoders and the index")
+    serve.add_argument(
+        "--dense-dtype", default=None, choices=DENSE_DTYPES,
+        help="dense storage tier: exact fp32 (default), bf16 (2x less "
+             "device memory), int8 (4x, exact via rescore), or pq (32x, "
+             "build the store with --pq-m first). Env equivalent: "
+             "LEGAL_RAG_DENSE_DTYPE",
+    )
     args = parser.parse_args(argv)
 
     logging.basicConfig(
@@ -125,6 +154,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     from legal_rag_tpu.server.app import run_server
 
-    engine = load_engine(args.store, args.device)
+    engine = load_engine(args.store, args.device, args.dense_dtype)
     asyncio.run(run_server(engine=engine, host=args.host, port=args.port))
     return 0

@@ -32,9 +32,21 @@
 // Numerics: fp32 docs use fp32 FMA (no tensor cores, so no TF32).
 // bf16 docs take bf16 queries; both widen exactly to fp32, so every
 // product is exact and the sum is accumulated in fp32.
+//
+// int8 (the 4x capacity tier): int8 docs and int8 queries, products
+// summed in int32 by __dp4a (four int8 products per instruction), rows
+// >= n_valid masked to -2^30 (below any real sum: |sum| <= 384 * 127^2),
+// and the map is int32 [n_q, n_rows / 8]. The doc quantization scale
+// is shared by each 8-row segment, so it commutes with the segment max
+// and the caller dequantizes the small map. The split differs: a
+// 384-byte int8 row is 24 chunks of 16 bytes, which do not spread over
+// 16 lanes, so an int8 lane loads 8-byte chunks (3 per lane and row,
+// 16 lanes still reading 128 contiguous bytes per load); the rest of
+// the layout (4 rows per lane, 2 row groups per warp) is the same.
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,10 +130,16 @@ __device__ __forceinline__ void dot_queries(const float (*x)[kVals],
 // kLanesPerRow lanes), mask rows >= n_valid, take the max over the
 // lane's kRows rows and then over the warp's row groups (the segment's
 // 8 rows), and store from lane 0.
-template <int QB>
-__device__ __forceinline__ void reduce_store(float (*acc)[kRows],
+// The masked value and the max of each accumulator type.
+__device__ __forceinline__ float masked(float) { return -FLT_MAX; }
+__device__ __forceinline__ int masked(int) { return -(1 << 30); }
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+
+template <int QB, typename Acc>
+__device__ __forceinline__ void reduce_store(Acc (*acc)[kRows],
                                              const bool* valid, int lane,
-                                             float* dst, long long n_segs) {
+                                             Acc* dst, long long n_segs) {
 #pragma unroll
   for (int m = 1; m < kLanesPerRow; m <<= 1) {
 #pragma unroll
@@ -132,20 +150,21 @@ __device__ __forceinline__ void reduce_store(float (*acc)[kRows],
       }
     }
   }
-  float v[QB];
+  const Acc neg = masked(Acc());
+  Acc v[QB];
 #pragma unroll
   for (int j = 0; j < QB; ++j) {
-    v[j] = -FLT_MAX;
+    v[j] = neg;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      v[j] = fmaxf(v[j], valid[i] ? acc[j][i] : -FLT_MAX);
+      v[j] = vmax(v[j], valid[i] ? acc[j][i] : neg);
     }
   }
 #pragma unroll
   for (int m = kLanesPerRow; m < 32; m <<= 1) {
 #pragma unroll
     for (int j = 0; j < QB; ++j) {
-      v[j] = fmaxf(v[j], __shfl_xor_sync(kFullMask, v[j], m));
+      v[j] = vmax(v[j], __shfl_xor_sync(kFullMask, v[j], m));
     }
   }
   if (lane == 0) {
@@ -207,24 +226,117 @@ segmax_rm_kernel(const T* __restrict__ docs, const T* __restrict__ queries,
     for (; q + kQB <= q_tile; q += kQB) {
       float acc[kQB][kRows];
       dot_queries<kQB, D, kElems, kPerLane, kVals>(x, qlane + q * D, acc);
-      reduce_store<kQB>(acc, valid, lane, dst + q * n_segs, n_segs);
+      reduce_store<kQB, float>(acc, valid, lane, dst + q * n_segs, n_segs);
     }
     for (; q < q_tile; ++q) {
       float acc[1][kRows];
       dot_queries<1, D, kElems, kPerLane, kVals>(x, qlane + q * D, acc);
-      reduce_store<1>(acc, valid, lane, dst + q * n_segs, n_segs);
+      reduce_store<1, float>(acc, valid, lane, dst + q * n_segs, n_segs);
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* docs, const void* queries, float* out,
-                   long long n_rows, int n_q, long long n_valid,
-                   cudaStream_t stream) {
-  auto kernel = segmax_rm_kernel<T, D>;
+// int8 docs and queries -> int32 map; layout in the file comment.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+segmax_rm_i8_kernel(const int8_t* __restrict__ docs,
+                    const int8_t* __restrict__ queries,
+                    int* __restrict__ out, long long n_segs, int n_q,
+                    long long n_valid) {
+  constexpr int kChunkBytes = 8;                   // one uint2 load
+  constexpr int kChunks = D / kChunkBytes;         // chunks per row
+  static_assert(D % kChunkBytes == 0, "row must split into 8-byte chunks");
+  static_assert(kChunks % kLanesPerRow == 0, "row must split over its lanes");
+  constexpr int kPerLane = kChunks / kLanesPerRow; // chunks per lane per row
+
+  extern __shared__ float4 smem[];
+  uint2* qs = reinterpret_cast<uint2*>(smem);     // [q_tile, kChunks]
+
+  const int q0 = blockIdx.y * kMaxQTile;
+  const int q_tile = min(kMaxQTile, n_q - q0);
+  const uint2* qsrc = reinterpret_cast<const uint2*>(
+      queries + static_cast<long long>(q0) * D);
+  for (int i = threadIdx.x; i < q_tile * kChunks; i += kThreads) {
+    qs[i] = qsrc[i];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / kLanesPerRow;
+  const int sub = lane % kLanesPerRow;
+  const uint2* qlane = qs + sub;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long seg = static_cast<long long>(blockIdx.x) * kWarps + warp;
+       seg < n_segs; seg += stride) {
+    // this lane's 4 rows of the segment, 4 int8 values per register
+    uint2 x[kRows][kPerLane];
+    bool valid[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const long long row = seg * kSegRows + group + kGroups * i;
+      const uint2* src = reinterpret_cast<const uint2*>(docs + row * D);
+#pragma unroll
+      for (int t = 0; t < kPerLane; ++t) {
+        x[i][t] = __ldg(src + sub + kLanesPerRow * t);
+      }
+      valid[i] = row < n_valid;
+    }
+    int* dst = out + static_cast<long long>(q0) * n_segs + seg;
+    int q = 0;
+    for (; q + kQB <= q_tile; q += kQB) {
+      int acc[kQB][kRows];
+#pragma unroll
+      for (int j = 0; j < kQB; ++j) {
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) acc[j][i] = 0;
+      }
+#pragma unroll
+      for (int t = 0; t < kPerLane; ++t) {
+#pragma unroll
+        for (int j = 0; j < kQB; ++j) {
+          const uint2 a = qlane[(q + j) * kChunks + t * kLanesPerRow];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            acc[j][i] = __dp4a(static_cast<int>(x[i][t].x),
+                               static_cast<int>(a.x), acc[j][i]);
+            acc[j][i] = __dp4a(static_cast<int>(x[i][t].y),
+                               static_cast<int>(a.y), acc[j][i]);
+          }
+        }
+      }
+      reduce_store<kQB, int>(acc, valid, lane, dst + q * n_segs, n_segs);
+    }
+    for (; q < q_tile; ++q) {
+      int acc[1][kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) acc[0][i] = 0;
+#pragma unroll
+      for (int t = 0; t < kPerLane; ++t) {
+        const uint2 a = qlane[q * kChunks + t * kLanesPerRow];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          acc[0][i] = __dp4a(static_cast<int>(x[i][t].x),
+                             static_cast<int>(a.x), acc[0][i]);
+          acc[0][i] = __dp4a(static_cast<int>(x[i][t].y),
+                             static_cast<int>(a.y), acc[0][i]);
+        }
+      }
+      reduce_store<1, int>(acc, valid, lane, dst + q * n_segs, n_segs);
+    }
+  }
+}
+
+// Persistent blocks: each stages its query tile once, then its warps
+// walk the segments with a grid stride.
+template <typename In, typename Out>
+cudaError_t launch_persistent(
+    void (*kernel)(const In*, const In*, Out*, long long, int, long long),
+    size_t smem_per_query, const void* docs, const void* queries, void* out,
+    long long n_rows, int n_q, long long n_valid, cudaStream_t stream) {
   const long long n_segs = n_rows / kSegRows;
   const int q_tile = n_q < kMaxQTile ? n_q : kMaxQTile;
-  const size_t smem = static_cast<size_t>(q_tile) * D * sizeof(float);
+  const size_t smem = static_cast<size_t>(q_tile) * smem_per_query;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -236,8 +348,6 @@ cudaError_t launch(const void* docs, const void* queries, float* out,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
-  // persistent blocks: each stages its query tile once, then its warps
-  // walk the segments with a grid stride
   long long blocks = (n_segs + kWarps - 1) / kWarps;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (blocks > resident) blocks = resident;
@@ -245,13 +355,29 @@ cudaError_t launch(const void* docs, const void* queries, float* out,
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>((n_q + kMaxQTile - 1) / kMaxQTile));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(docs), static_cast<const T*>(queries), out,
-      n_segs, n_q, n_valid);
+      static_cast<const In*>(docs), static_cast<const In*>(queries),
+      static_cast<Out*>(out), n_segs, n_q, n_valid);
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch(const void* docs, const void* queries, void* out,
+                   long long n_rows, int n_q, long long n_valid,
+                   cudaStream_t stream) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    // the query tile stays int8 in shared memory: D bytes a query
+    return launch_persistent<int8_t, int>(
+        segmax_rm_i8_kernel<D>, D, docs, queries, out, n_rows, n_q,
+        n_valid, stream);
+  } else {
+    return launch_persistent<T, float>(
+        segmax_rm_kernel<T, D>, D * sizeof(float), docs, queries, out,
+        n_rows, n_q, n_valid, stream);
+  }
+}
+
 template <typename T>
-cudaError_t dispatch_dim(const void* docs, const void* queries, float* out,
+cudaError_t dispatch_dim(const void* docs, const void* queries, void* out,
                          long long n_rows, int d, int n_q, long long n_valid,
                          cudaStream_t stream) {
   switch (d) {
@@ -266,12 +392,13 @@ cudaError_t dispatch_dim(const void* docs, const void* queries, float* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. n_rows must be a multiple of 8;
-// docs [n_rows, d] and queries [n_q, d] row-major, 16-byte aligned.
-// Returns the CUDA error of the launch (0 on success); the kernel runs
-// asynchronously on ``stream``.
+// dtype: 0 = float32 and 1 = bfloat16 (float32 map ``out``), 2 = int8
+// (int32 map). n_rows must be a multiple of 8; docs [n_rows, d] and
+// queries [n_q, d] row-major, 16-byte aligned. Returns the CUDA error
+// of the launch (0 on success); the kernel runs asynchronously on
+// ``stream``.
 extern "C" int segmax_rm_launch(const void* docs, const void* queries,
-                                float* out, long long n_rows, int d,
+                                void* out, long long n_rows, int d,
                                 int n_q, long long n_valid, int dtype,
                                 int device, void* stream) {
   if (n_rows % kSegRows != 0 || n_q < 1 || n_rows < kSegRows) {
@@ -285,6 +412,8 @@ extern "C" int segmax_rm_launch(const void* docs, const void* queries,
   } else if (dtype == 1) {
     err = dispatch_dim<__nv_bfloat16>(docs, queries, out, n_rows, d, n_q,
                                       n_valid, s);
+  } else if (dtype == 2) {
+    err = dispatch_dim<int8_t>(docs, queries, out, n_rows, d, n_q, n_valid, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -7,7 +7,11 @@ count: BM25 token streams with Zipf term frequencies over a 50k-term
 vocabulary, the Okapi CSR computed vectorised with the same formula and
 term order as ``build_bm25``, a WordPiece vocab from a sample of the
 texts, MiniLM weights at full width (seeded N(0, 0.02)), a
-cross-encoder checkpoint, and random unit embeddings.
+cross-encoder checkpoint, random unit embeddings, and the PQ and IVF
+artifacts of the capacity tier (``pq.npz``, ``ivf.npz``), trained by the
+port as ``build --pq-m 48 --ivf-cell-size 1024`` would train them (for
+embedding widths that divide by the 96 nibble subspaces, as MiniLM's
+384 does).
 
 For each query in ``planted`` one doc is planted: its embedding is the
 encoder's embedding of that query and its text repeats the query's
@@ -31,6 +35,8 @@ MEAN_LEN = 104.0     # BM25 tokens per chunk in the serving corpus
 # grid, so random CE weights refine the retrieval order but cannot
 # overturn it (a random CE carries no relevance signal)
 CE_ALPHA = 0.1
+PQ_M = 48            # the capacity tier's bytes a doc (`build --pq-m 48`)
+IVF_CELL_SIZE = 1024  # docs per IVF cell (`build --ivf-cell-size 1024`)
 
 _CONSONANTS = "bcdfghjklmnprstvwz"
 _VOWELS = "aeiou"
@@ -191,10 +197,12 @@ def synthesize_store(
     ``planted``: queries that each get one planted doc, at ids
     ``planted_ids(n_docs, len(planted))``. ``vocab_queries``: further
     queries whose words must be in the BM25 vocabulary. ``device``
-    runs the port's encoder for the planted embeddings.
+    runs the port's encoder for the planted embeddings and the PQ/IVF
+    training.
     """
     from legal_rag_tpu_torch.models.encoder import SentenceEncoder
     from legal_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from legal_rag_tpu_torch.ops.pq import build_ivf, encode_pq, train_pq
 
     cfg = cfg or EncoderConfig()
     rng = np.random.default_rng(seed)
@@ -258,6 +266,18 @@ def synthesize_store(
         )
         emb[plant_at] = encoder.encode(list(planted))
 
+    # the capacity tier's artifacts, as `build --pq-m --ivf-cell-size`
+    # makes them (OPQ on, 8 rounds)
+    pq = {}
+    if cfg.hidden % (2 * PQ_M) == 0:
+        cb = train_pq(emb, m=PQ_M, opq_iters=8, device=device)
+        pq = {"pq_codes": encode_pq(emb, cb, device=device),
+              "pq_codebooks": cb.codebooks, "pq_rotation": cb.rotation}
+        ivf = build_ivf(emb, cb, pq["pq_codes"], cell_size=IVF_CELL_SIZE,
+                        device=device)
+        pq.update(ivf_centroids=ivf.centroids, ivf_doc_ids=ivf.doc_ids,
+                  ivf_cell_size=IVF_CELL_SIZE)
+
     return VectorStore(
         embeddings=emb,
         bm25=bm25,
@@ -275,7 +295,10 @@ def synthesize_store(
         encoder_params=enc_params,
         ce_params=ce_params,
         ce_alpha=CE_ALPHA,
-        build_params={"synthetic": {"n_docs": n_docs, "seed": seed}},
+        build_params={"synthetic": {"n_docs": n_docs, "seed": seed},
+                      **({"pq_m": PQ_M, "ivf_cell_size": IVF_CELL_SIZE}
+                         if pq else {})},
+        **pq,
     )
 
 

@@ -8,7 +8,9 @@
 
 query-major, ``[Q, N / seg_rows]`` float32, without writing the
 ``[Q, N]`` score matrix. It replaces the TPU kernel
-``legal_rag_tpu/ops/dense.py _segmax_rm_kernel``.
+``legal_rag_tpu/ops/dense.py _segmax_rm_kernel``, including its int8
+branch: int8 docs and int8 queries give exact int32 dot products, rows
+``>= n_valid`` are masked to ``-2**30``, and the map is int32.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
 ``legal_rag_tpu_torch/csrc/segmax_rm.cu`` (built with nvcc on first use,
@@ -31,8 +33,9 @@ from legal_rag_tpu_torch.utils.cuda_build import (
 
 SEG_ROWS = 8                          # the kernel's warp layout: 8 rows
 SUPPORTED_DIMS = (128, 256, 384, 512, 768)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NEG = float(torch.finfo(torch.float32).min)
+INT8_MASK = -(2 ** 30)                # below any int8 dot: 384 * 127**2 < 2**23
 
 
 def segmax_rm_reference(
@@ -42,20 +45,31 @@ def segmax_rm_reference(
     seg_rows: int = SEG_ROWS,
 ) -> torch.Tensor:
     """Plain PyTorch K1: full ``[N, Q]`` fp32 scores, rows ``>= n_valid``
-    masked to the finite fp32 minimum, max over each segment."""
+    masked to the finite fp32 minimum, max over each segment.
+
+    int8 docs and queries: the fp32 product of their values is exact
+    (every partial sum is an integer below 2**24 in magnitude, in any
+    order, as long as the matmul runs in true fp32 and not TF32), so
+    the int32 map equals the kernel's bit for bit."""
     n = docs.shape[0]
     scores = docs.float() @ queries.float().T                    # [N, Q]
     row = torch.arange(n, device=docs.device)[:, None]
+    if docs.dtype == torch.int8:
+        scores = torch.where(row < n_valid, scores, float(INT8_MASK))
+        seg = scores.view(n // seg_rows, seg_rows, -1).amax(dim=1)
+        return seg.T.to(torch.int32).contiguous()
     scores = torch.where(row < n_valid, scores, _NEG)
     seg = scores.view(n // seg_rows, seg_rows, -1).amax(dim=1)  # [S, Q]
     return seg.T.contiguous()
 
 
 class SegmaxKernel:
-    """The built library and the count of kernel launches."""
+    """The built library and the counts of kernel launches: ``launches``
+    for float32/bfloat16 docs, ``int8_launches`` for the int8 tier."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.int8_launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
@@ -78,9 +92,12 @@ class SegmaxKernel:
                 self._lib = lib
             return self._lib
 
-    def count_launch(self) -> None:
+    def count_launch(self, int8: bool = False) -> None:
         with self._lock:
-            self.launches += 1
+            if int8:
+                self.int8_launches += 1
+            else:
+                self.launches += 1
 
 
 K1 = SegmaxKernel()
@@ -88,11 +105,12 @@ K1 = SegmaxKernel()
 
 def segmax_rm(
     queries: torch.Tensor,      # [Q, D], the docs' dtype
-    docs: torch.Tensor,         # [N, D] float32 or bfloat16
+    docs: torch.Tensor,         # [N, D] float32, bfloat16 or int8
     n_valid: int,
     seg_rows: int = SEG_ROWS,
 ) -> torch.Tensor:
-    """Segment maxima ``[Q, N / seg_rows]`` float32 (see module doc)."""
+    """Segment maxima ``[Q, N / seg_rows]``: float32, or int32 for int8
+    docs (see module doc)."""
     if docs.device.type == "cpu" and queries.device.type == "cpu":
         return segmax_rm_reference(queries, docs, n_valid, seg_rows)
     if docs.device.type != "cuda" or queries.device != docs.device:
@@ -109,7 +127,7 @@ def segmax_rm(
     if docs.dtype not in _DTYPE_CODES or queries.dtype != docs.dtype:
         raise ValueError(
             f"segmax_rm: docs {docs.dtype} / queries {queries.dtype}; "
-            "both float32 or both bfloat16"
+            "both float32, both bfloat16 or both int8"
         )
     if seg_rows != SEG_ROWS:
         raise ValueError(f"segmax_rm: the kernel takes seg_rows={SEG_ROWS}")
@@ -124,7 +142,9 @@ def segmax_rm(
         raise ValueError("segmax_rm: docs and queries must be contiguous")
     if docs.data_ptr() % 16 or queries.data_ptr() % 16:
         raise ValueError("segmax_rm: tensors must be 16-byte aligned")
-    out = torch.empty((q, n // seg_rows), dtype=torch.float32,
+    is_int8 = docs.dtype == torch.int8
+    out = torch.empty((q, n // seg_rows),
+                      dtype=torch.int32 if is_int8 else torch.float32,
                       device=docs.device)
     lib = K1.library()
     stream = torch.cuda.current_stream(docs.device).cuda_stream
@@ -135,5 +155,5 @@ def segmax_rm(
     )
     if err != 0:
         raise RuntimeError(f"segmax_rm kernel launch failed: CUDA error {err}")
-    K1.count_launch()
+    K1.count_launch(int8=is_int8)
     return out

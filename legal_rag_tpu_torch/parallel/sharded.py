@@ -1,11 +1,19 @@
 """Hybrid search over one device: dense top-C, BM25, fusion.
 
 The body of ``legal_rag_tpu.parallel.sharded.sharded_hybrid_search`` at
-one shard (S=1): the dense local top-C (a plain matmul + top-k for
-small shards, the two-phase K1 path for large ones), BM25 by scatter
-(small shards) or sorted-postings segment sums (large shards), the
-global dense top-C, and weighted or RRF fusion. Results are identical
-in form: ``(fused [Q,k], ids [Q,k], sem [Q,k], keyword [Q,k])``.
+one shard (S=1): the dense local top-C, BM25 by scatter (small shards)
+or sorted-postings segment sums (large shards, and always with IVF),
+the global dense top-C, and weighted or RRF fusion. Results are
+identical in form: ``(fused [Q,k], ids [Q,k], sem [Q,k], keyword [Q,k])``.
+
+The dense stage follows the doc matrix's storage tier:
+
+- float32 / bfloat16: a plain matmul + top-k for small shards, the
+  two-phase K1 path for large ones;
+- int8 (per-segment scales): the same dispatch in the int8 metric, K1's
+  int8 variant at large N;
+- pq (uint8 codes): :func:`legal_rag_tpu_torch.ops.pq.pq_topk` (kernel
+  K2), or its IVF-pruned form when the index carries IVF cells.
 
 Sharding over several devices is queued in ROADMAP.md (P13).
 """
@@ -13,7 +21,7 @@ Sharding over several devices is queued in ROADMAP.md (P13).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +29,7 @@ import torch
 from legal_rag_tpu_torch.ops.dense import (
     LARGE_N_THRESHOLD, TWOPHASE_BLOCK_N, TWOPHASE_MIN_DOCS,
     TWOPHASE_SEG_ROWS, _SCORE_MATRIX_BUDGET_BYTES, dense_topk_twophase_rm,
-    lax_top_k, matmul_scores,
+    lax_top_k, matmul_scores, quantize_queries,
 )
 from legal_rag_tpu_torch.ops.fusion import rrf_fusion
 from legal_rag_tpu_torch.ops.sparse import bm25_score_batch
@@ -41,10 +49,34 @@ def _topk_padded(scores: torch.Tensor, c: int):
     return s, i
 
 
-def _local_dense_topc(q, docs_local, n_docs: int, c: int):
+def _local_dense_topc(q, docs_local, n_docs: int, c: int, doc_scales=None):
     """[Q, C] dense candidates, ids int64; padding rows (ids >= n_docs)
-    masked. bf16 docs take bf16 queries with fp32 accumulation."""
+    masked. bf16 docs take bf16 queries with fp32 accumulation; int8
+    docs take per-row int8 queries, exact int32 dot products and the
+    ``q_scale * doc_scale`` dequantization."""
     n_local_w = docs_local.shape[0]
+    if docs_local.dtype == torch.int8:
+        aligned8 = (n_local_w % TWOPHASE_BLOCK_N == 0
+                    and n_local_w % TWOPHASE_SEG_ROWS == 0)
+        if aligned8 and (
+            n_local_w >= TWOPHASE_MIN_DOCS
+            or q.shape[0] * n_local_w * 4 > _SCORE_MATRIX_BUDGET_BYTES
+        ):
+            s, i = dense_topk_twophase_rm(
+                q, docs_local, c, n_valid=min(n_docs, n_local_w),
+                seg_rows=TWOPHASE_SEG_ROWS, doc_scales=doc_scales,
+            )
+            i = i.long()
+            s = torch.where((i >= 0) & (i < n_docs), s, _NEG_INF)
+            return s, i
+        # the int32 dot products of int8 values are exact in an fp32
+        # matmul (every partial sum is an integer below 2**24)
+        q_i8, q_scale = quantize_queries(q)
+        acc = matmul_scores(q_i8.float(), docs_local)
+        scores = acc * q_scale[:, None] * doc_scales[None, :]
+        col = torch.arange(n_local_w, device=scores.device)
+        scores = torch.where(col < n_docs, scores, _NEG_INF)
+        return _topk_padded(scores, c)
     if docs_local.dtype == torch.bfloat16:
         q = q.to(torch.bfloat16)
     aligned = n_local_w % TWOPHASE_BLOCK_N == 0
@@ -62,6 +94,46 @@ def _local_dense_topc(q, docs_local, n_docs: int, c: int):
     col = torch.arange(n_local_w, device=scores.device)
     scores = torch.where(col < n_docs, scores, _NEG_INF)
     return _topk_padded(scores, c)
+
+
+def _pad_candidates(s: torch.Tensor, i: torch.Tensor, c: int):
+    """Pad ``[Q, c'] `` candidates to ``[Q, c]`` with (-inf, -1)."""
+    q, have = s.shape
+    if have < c:
+        s = torch.cat([s, s.new_full((q, c - have), _NEG_INF)], dim=1)
+        i = torch.cat([i, i.new_full((q, c - have), -1)], dim=1)
+    return s, i
+
+
+def _local_pq_topc(q, codes_local, codebooks, n_docs: int, c: int):
+    """[Q, C] PQ candidates (approximate under the PQ metric; callers
+    oversample and rescore in fp32). ``q`` is OPQ-rotated already when
+    the codebook has a rotation."""
+    from legal_rag_tpu_torch.ops.pq import pq_topk
+
+    n_local = codes_local.shape[0]
+    c_req = min(c, n_local)
+    s, i = pq_topk(q, codes_local, codebooks, c_req,
+                   n_valid=min(n_docs, n_local))
+    s, i = _pad_candidates(s, i.long(), c)
+    bad = (i < 0) | ~torch.isfinite(s)
+    return torch.where(bad, _NEG_INF, s), torch.where(bad, -1, i)
+
+
+def _local_pq_ivf_topc(q, codes_local, ids_local, cent_local, codebooks,
+                       c: int, probes: int, cell_size: int, q_valid=None):
+    """[Q, C] PQ candidates over the IVF cells, global ids through the
+    cell permutation. The probe budget grows with the batch so every
+    query keeps at least 4 cells of its own: ``max(probes, 4 Q)``."""
+    from legal_rag_tpu_torch.ops.pq import _pq_ivf_topk_impl
+
+    p = min(max(probes, 4 * q.shape[0]), cent_local.shape[0])
+    kk = min(c, p * cell_size)
+    s, i = _pq_ivf_topk_impl(
+        q, cent_local, codes_local, ids_local, codebooks, kk, p,
+        cell_size, q_valid=q_valid,
+    )
+    return _pad_candidates(s, i, c)
 
 
 def _bm25_segment_stats(pids: torch.Tensor, pw: torch.Tensor, n_docs: int):
@@ -112,12 +184,55 @@ def _segment_totals_at(sid, valid, totals, ids):
 
 @dataclasses.dataclass
 class ShardedIndex:
-    """Device-resident doc matrix ``[Npad, D]`` (row-major) for one
-    device. Corpora at or above ``TWOPHASE_MIN_DOCS`` pad to a multiple
-    of ``TWOPHASE_BLOCK_N`` rows, so they take the K1 path."""
+    """The device-resident dense index of one device, in one storage
+    tier:
+
+    - ``float32`` / ``bfloat16``: the doc matrix ``[Npad, D]``;
+    - ``int8``: ``[Npad, D]`` int8 with ``doc_scales [Npad]`` (one scale
+      per 8-row segment, repeated per row), 4x smaller than fp32;
+    - ``pq``: packed 4-bit codes ``[N, m]`` uint8 (``m`` bytes a doc),
+      ``pq_codebooks [2m, 16, dsub]`` and the optional OPQ rotation
+      (host, ``[D, D]``); with IVF, the codes are cell-ordered and
+      ``ivf_centroids`` / ``ivf_doc_ids`` carry the cells.
+
+    Float and int8 corpora at or above ``TWOPHASE_MIN_DOCS`` pad to a
+    multiple of ``TWOPHASE_BLOCK_N`` rows, so they take the K1 path
+    (smaller int8 corpora pad to the 8-row segment)."""
 
     docs: torch.Tensor
     n_docs: int
+    doc_scales: Optional[torch.Tensor] = None
+    pq_codebooks: Optional[torch.Tensor] = None
+    pq_rotation: Optional[np.ndarray] = None
+    ivf_centroids: Optional[torch.Tensor] = None
+    ivf_doc_ids: Optional[torch.Tensor] = None
+    ivf_cell_size: int = 0
+
+    @classmethod
+    def from_pq_ivf(cls, ivf, codebooks: np.ndarray, rotation=None,
+                    device="cpu") -> "ShardedIndex":
+        """IVF-pruned PQ layout: cell-ordered codes, the cell means and
+        the global-id permutation (-1 on the padded tail)."""
+        return cls(
+            docs=torch.from_numpy(np.asarray(ivf.codes, np.uint8)).to(device),
+            n_docs=int((np.asarray(ivf.doc_ids) >= 0).sum()),
+            pq_codebooks=_device_f32(codebooks, device),
+            pq_rotation=_host_rotation(rotation),
+            ivf_centroids=_device_f32(ivf.centroids, device),
+            ivf_doc_ids=torch.from_numpy(
+                np.asarray(ivf.doc_ids, np.int32)).to(device),
+            ivf_cell_size=int(ivf.cell_size),
+        )
+
+    @classmethod
+    def from_pq(cls, codes: np.ndarray, codebooks: np.ndarray,
+                rotation=None, device="cpu") -> "ShardedIndex":
+        return cls(
+            docs=torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(device),
+            n_docs=int(codes.shape[0]),
+            pq_codebooks=_device_f32(codebooks, device),
+            pq_rotation=_host_rotation(rotation),
+        )
 
     @classmethod
     def from_embeddings(
@@ -125,31 +240,68 @@ class ShardedIndex:
         embeddings: np.ndarray,
         dtype: str = "float32",
         device="cpu",
+        pq_m: int = 48,
     ) -> "ShardedIndex":
-        if dtype in ("int8", "pq"):
-            raise NotImplementedError(
-                f"dense dtype {dtype!r} is not ported yet "
-                "(ROADMAP.md queue 1, P8 int8 / P9 pq)"
-            )
-        if dtype not in ("float32", "bfloat16"):
+        if dtype not in ("float32", "bfloat16", "int8", "pq"):
             raise ValueError(f"unknown dense dtype {dtype!r}")
         n, d = embeddings.shape
-        unit = TWOPHASE_BLOCK_N if n >= TWOPHASE_MIN_DOCS else 1
+        if dtype == "pq":
+            # train at load; builds persist the codebooks instead
+            from legal_rag_tpu_torch.ops.pq import encode_pq, train_pq
+
+            emb = np.asarray(embeddings, np.float32)
+            cb = train_pq(emb, m=pq_m, opq_iters=8, device=device)
+            codes = encode_pq(emb, cb, device=device)
+            return cls.from_pq(codes, cb.codebooks, cb.rotation, device)
+        unit = TWOPHASE_SEG_ROWS if dtype == "int8" else 1
+        if n >= TWOPHASE_MIN_DOCS:
+            unit = TWOPHASE_BLOCK_N
         n_pad = -(-n // unit) * unit
         host = np.zeros((n_pad, d), dtype=np.float32)
         host[:n] = embeddings
+        if dtype == "int8":
+            # symmetric quantization with one scale per 8-row segment
+            # (the max over its rows of max|x| / 127), so K1's integer
+            # segment max commutes with the dequantization
+            g = TWOPHASE_SEG_ROWS
+            per_doc = np.abs(host).max(axis=1) / 127.0
+            scales = per_doc.reshape(n_pad // g, g).max(axis=1)
+            scales[scales == 0] = 1.0
+            scales = np.repeat(scales, g)
+            quant = np.clip(
+                np.rint(host / scales[:, None]), -127, 127
+            ).astype(np.int8)
+            return cls(
+                docs=torch.from_numpy(quant).to(device), n_docs=n,
+                doc_scales=torch.from_numpy(
+                    scales.astype(np.float32)).to(device),
+            )
         docs = torch.from_numpy(host).to(device)
         if dtype == "bfloat16":
             docs = docs.to(torch.bfloat16)
         return cls(docs=docs, n_docs=n)
 
 
+def _device_f32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def _host_rotation(rotation) -> Optional[np.ndarray]:
+    return None if rotation is None else np.asarray(rotation, np.float32)
+
+
 def hybrid_search(
-    docs: torch.Tensor,       # [Npad, D] float32 / bfloat16
+    docs: torch.Tensor,       # [Npad, D] float32 / bfloat16 / int8, or
+                              # PQ codes [Npad, m] uint8
     post_ids: torch.Tensor,   # [Q, P] global doc ids
     post_w: torch.Tensor,     # [Q, P] posting weights
-    q_emb: torch.Tensor,      # [Q, D] float32 query embeddings
+    q_emb: torch.Tensor,      # [Q, D] float32 query embeddings (OPQ-
+                              # rotated for a PQ index with a rotation)
     weights: torch.Tensor,    # [Q] hybrid weights
+    doc_scales: Optional[torch.Tensor] = None,     # [Npad] f32, int8 tier
+    pq_codebooks: Optional[torch.Tensor] = None,   # [2m, 16, dsub], pq tier
+    ivf_centroids: Optional[torch.Tensor] = None,  # [n_cells, D], IVF
+    ivf_doc_ids: Optional[torch.Tensor] = None,    # [Npad] global ids, IVF
     *,
     k: int,
     c: int,
@@ -157,23 +309,48 @@ def hybrid_search(
     mode: str = "weighted",
     rrf_k: int = 60,
     sparse_mode: str = "auto",   # auto | scatter | segsum
+    ivf_probes: int = 64,
+    ivf_cell_size: int = 1024,
+    n_queries: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns ``(fused [Q,k], ids [Q,k] int32, sem [Q,k], keyword [Q,k])``.
 
     ``mode='weighted'``: fusion over the dense candidates;
     ``mode='rrf'``: reciprocal-rank fusion of the dense and sparse
-    lists (sem/keyword are then 0).
+    lists (sem/keyword are then 0). ``n_queries``: the real (unpadded)
+    rows of the batch; only they vote for IVF cells.
     """
     if mode not in ("weighted", "rrf"):
         raise ValueError(f"unknown fusion mode {mode!r}")
+    is_pq = docs.dtype == torch.uint8
+    if is_pq and pq_codebooks is None:
+        raise ValueError("uint8 (PQ) doc codes require pq_codebooks")
+    if docs.dtype == torch.int8 and doc_scales is None:
+        raise ValueError("int8 docs require doc_scales")
+    is_ivf = is_pq and ivf_centroids is not None
+    if is_ivf and ivf_doc_ids is None:
+        raise ValueError("IVF mode requires ivf_doc_ids (the global-id "
+                         "cell permutation)")
     n_local = docs.shape[0]
     pids = post_ids.long()
     pw = post_w.float()
-    use_segsum = sparse_mode == "segsum" or (
+    # IVF cells hold arbitrary global ids, so the scatter path's row
+    # arithmetic cannot apply: IVF always takes the segment sums
+    use_segsum = is_ivf or sparse_mode == "segsum" or (
         sparse_mode == "auto" and n_local > LARGE_N_THRESHOLD
     )
 
-    d_s, d_i = _local_dense_topc(q_emb, docs, n_docs, c)
+    if is_ivf:
+        nq = q_emb.shape[0] if n_queries is None else int(n_queries)
+        q_valid = torch.arange(q_emb.shape[0], device=docs.device) < nq
+        d_s, d_i = _local_pq_ivf_topc(
+            q_emb, docs, ivf_doc_ids, ivf_centroids, pq_codebooks, c,
+            ivf_probes, ivf_cell_size, q_valid=q_valid,
+        )
+    elif is_pq:
+        d_s, d_i = _local_pq_topc(q_emb, docs, pq_codebooks, n_docs, c)
+    else:
+        d_s, d_i = _local_dense_topc(q_emb, docs, n_docs, c, doc_scales)
 
     if use_segsum:
         sid, s_valid, s_totals, global_max = _bm25_segment_stats(

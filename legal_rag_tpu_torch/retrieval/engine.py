@@ -6,10 +6,14 @@ interface for the orchestrator and the HTTP layer (``.store``,
 ``enable_request_coalescing``), one ``[Q, D]`` query matrix per call,
 and the same power-of-two query bucketing and postings budget. The
 device work is :func:`legal_rag_tpu_torch.parallel.sharded.hybrid_search`
-on one device.
+on one device, over the storage tier that ``config.dense.dtype`` names:
+float32, bfloat16, int8 or pq (with IVF pruning when the store carries
+IVF cells and ``dense.use_ivf`` is set). The int8 and pq tiers
+oversample their candidates and, in weighted mode, rescore them exactly
+in fp32 on the host (``exact_rescore``), as the JAX engine does.
 
-Not ported yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the int8 and pq dense tiers and the maxsim modes.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
+item): the maxsim modes.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from legal_rag_tpu.utils.timing import StageTimer
 from legal_rag_tpu_torch.index.store import VectorStore
 from legal_rag_tpu_torch.models.encoder import SentenceEncoder
 from legal_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
+from legal_rag_tpu_torch.ops.dense import exact_rescore
 from legal_rag_tpu_torch.parallel.sharded import ShardedIndex, hybrid_search
 
 logger = logging.getLogger("LegalRAG-RetrievalEngine")
@@ -64,11 +69,6 @@ class RetrievalEngine:
         encoder: Optional[SentenceEncoder] = None,
         device="cpu",
     ):
-        if config.dense.dtype in ("int8", "pq"):
-            raise NotImplementedError(
-                f"dense dtype {config.dense.dtype!r} is not ported yet "
-                "(ROADMAP.md queue 1, P8 int8 / P9 pq)"
-            )
         # fp32 matmuls in full fp32 on the GPU: the reference computes
         # with Precision.HIGHEST, and TF32 keeps about three digits
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,9 +108,33 @@ class RetrievalEngine:
                 "different encoder (see manifest['encoder'])"
             )
         self.encoder = encoder
-        self.index = ShardedIndex.from_embeddings(
-            store.embeddings, dtype=config.dense.dtype, device=self.device,
-        )
+        if config.dense.dtype == "pq" and store.pq_codes is not None:
+            # build-time PQ artifacts: loads skip k-means
+            ivf = store.ivf_index() if config.dense.use_ivf else None
+            if ivf is not None:
+                self.index = ShardedIndex.from_pq_ivf(
+                    ivf, store.pq_codebooks, rotation=store.pq_rotation,
+                    device=self.device,
+                )
+            else:
+                self.index = ShardedIndex.from_pq(
+                    store.pq_codes, store.pq_codebooks,
+                    rotation=store.pq_rotation, device=self.device,
+                )
+        else:
+            if config.dense.dtype == "pq":
+                logger.warning(
+                    "dense.dtype='pq' but the store has no persisted PQ "
+                    "artifacts — falling back to boot-time k-means over "
+                    "all %d embeddings, which can add a long cold start "
+                    "on large corpora. Rebuild with `build --pq-m %d` "
+                    "to persist the codebooks.",
+                    store.n_docs, config.dense.pq_m,
+                )
+            self.index = ShardedIndex.from_embeddings(
+                store.embeddings, dtype=config.dense.dtype,
+                device=self.device, pq_m=config.dense.pq_m,
+            )
 
     # -- native batched API -------------------------------------------------
 
@@ -164,6 +188,24 @@ class RetrievalEngine:
         self.device_dispatches = getattr(self, "device_dispatches", 0) + 1
         cfg = self.config
         n_real = len(queries)
+        # the int8/pq tiers recover exactness by rescoring an oversampled
+        # candidate set in fp32 after the device pass (weighted mode
+        # only: RRF is rank-based over both lists)
+        rescore = (
+            cfg.dense.dtype in ("int8", "pq")
+            and cfg.dense.int8_rescore
+            and mode == "weighted"
+        )
+        oversample = (
+            cfg.dense.pq_oversample
+            if cfg.dense.dtype == "pq"
+            else cfg.dense.int8_oversample
+        )
+        k_dev = (
+            min(max(k * oversample, k), self.store.n_docs)
+            if rescore
+            else k
+        )
 
         # Bucket the query count to a power of two (min 8), as the JAX
         # engine does, so both run the same shapes.
@@ -173,6 +215,11 @@ class RetrievalEngine:
 
         with self.timer.stage("encode"):
             q_emb = self.encoder.encode(queries)
+        # OPQ: the device pass scores in the rotated space; the fp32
+        # rescore stays in the original space
+        q_dev = q_emb
+        if self.index.pq_rotation is not None:
+            q_dev = np.asarray(q_emb, np.float32) @ self.index.pq_rotation
         with self.timer.stage("postings"):
             budget = _pad_pow2(
                 self.store.bm25.postings_budget(
@@ -182,20 +229,43 @@ class RetrievalEngine:
             post_ids, post_w = self.store.bm25.gather_postings(queries, budget)
         with self.timer.stage("device_search"):
             dev = self.device
+            idx = self.index
             scores, ids, sem, key = hybrid_search(
-                self.index.docs,
+                idx.docs,
                 torch.from_numpy(post_ids).to(dev),
                 torch.from_numpy(post_w).to(dev),
-                torch.from_numpy(q_emb).to(dev),
+                torch.from_numpy(np.ascontiguousarray(q_dev)).to(dev),
                 torch.tensor(hybrid_weights, dtype=torch.float32, device=dev),
-                k=k,
-                c=max(cfg.fusion.candidate_multiplier * k, k),
+                idx.doc_scales,
+                idx.pq_codebooks,
+                idx.ivf_centroids,
+                idx.ivf_doc_ids,
+                k=k_dev,
+                c=max(cfg.fusion.candidate_multiplier * k_dev, k_dev),
                 n_docs=self.store.n_docs,
                 mode=mode,
                 rrf_k=cfg.fusion.rrf_k,
+                ivf_probes=cfg.dense.ivf_probes,
+                ivf_cell_size=idx.ivf_cell_size,
+                n_queries=n_real,
             )
             scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
             sem, key = sem.cpu().numpy(), key.cpu().numpy()
+        if rescore:
+            with self.timer.stage("int8_rescore"):
+                # narrow to the exact dense top-C pool first, so the
+                # fusion (dense candidates only) matches the fp32 engine
+                scores, ids, sem, key = exact_rescore(
+                    np.asarray(q_emb),
+                    ids,
+                    self.store.embeddings,
+                    keyword=key,
+                    weights=np.asarray(hybrid_weights, dtype=np.float32),
+                    k=k,
+                    dense_candidates=max(
+                        cfg.fusion.candidate_multiplier * k, k
+                    ),
+                )
         return self._assemble_results(n_real, k, scores, ids, sem, key)
 
     def _assemble_results(

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC_DIR = REPO_ROOT / "legal_rag_tpu_torch" / "csrc"
@@ -30,7 +30,14 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock_for(name: str) -> threading.Lock:
+    """One lock per library, so that different kernels build at once."""
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def find_nvcc() -> str:
@@ -55,18 +62,19 @@ def build_shared_library(
     name: str, sources: Sequence[Path]
 ) -> Tuple[Path, str]:
     """Compile ``sources`` into ``lib<name>.so``; returns the library
-    path and the compiler's log (empty when the cached build was
-    reused). Raises ``RuntimeError`` carrying nvcc's stderr on
-    failure."""
+    path and the compiler's log (kept beside the library, so a reused
+    build returns its log too). Raises ``RuntimeError`` carrying nvcc's
+    stderr on failure."""
     h = hashlib.sha256()
     for src in sources:
         h.update(Path(src).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"
     lib = out_dir / f"lib{name}.so"
-    with _lock:
+    log = out_dir / "nvcc.log"
+    with _lock_for(name):
         if lib.is_file():
-            return lib, ""
+            return lib, log.read_text() if log.is_file() else ""
         out_dir.mkdir(parents=True, exist_ok=True)
         # build under a private name, then rename into place: a
         # concurrent process never loads a half-written library
@@ -79,5 +87,6 @@ def build_shared_library(
                 f"nvcc failed (exit {proc.returncode}) building {name}:\n"
                 f"{' '.join(cmd)}\n{proc.stderr}"
             )
+        log.write_text(proc.stderr)
         os.replace(tmp, lib)
         return lib, proc.stderr

@@ -36,6 +36,11 @@ COPIED_OBJECTS = [
     "retrieval.engine:RetrievalEngine.search",
     "retrieval.facade:LegalEngine.query",
     "retrieval.facade:LegalEngine._adapted_view",
+    "ops.dense:exact_rescore",
+    "ops.pq:PQCodebook",
+    "ops.pq:unpack_codes",
+    "ops.pq:decode_pq",
+    "ops.pq:IVFIndex",
 ]
 
 # copied as they are so that both packages dispatch at the same sizes
@@ -47,6 +52,7 @@ COPIED_CONSTANTS = [
     "ops.dense:_SCORE_MATRIX_BUDGET_BYTES",
     "ops.dense:_TIE_OVERSAMPLE",
     "models.cross_encoder:HEADING_MAX_WORDS",
+    "ops.pq:_NEG_F32",
 ]
 
 
