@@ -3,9 +3,10 @@
 
 Phases, one output line each:
 
-1. the card (name and power limit from nvidia-smi) and the build of
-   kernels K1 and K2 from the CUDA sources in this checkout (one nvcc
-   each, started together), with ptxas's registers per instantiation;
+1. the card (name and power limit from nvidia-smi), the build of
+   kernels K1, K2, K3, K4 and the probe P from the CUDA sources in this
+   checkout (one nvcc each, started together), with ptxas's registers
+   per instantiation, and P launched on its tie input (33 expected);
 2. K1 against its plain PyTorch version at the main path's shapes
    (1,000,000 docs padded to 1,007,616 rows, D=384, 8 and 64 queries,
    fp32 and bf16, odd n_valid, duplicate rows), the whole two-phase
@@ -19,6 +20,20 @@ Phases, one output line each:
 2d. the PQ/IVF recovery workload of scripts/exp_ivf_recovery.py on the
    card (1,048,576 clustered docs, 64 queries, post-rescore recall@10
    at oversample 64, flat and at 512 probes);
+2e. K4 against its plain version on column-major docs (1,048,576 docs,
+   D=384, 8 and 64 queries, fp32 and bf16, seg_rows 8 and 16, odd
+   n_valid, duplicate columns), dense_topk_twophase's top-20 against a
+   float64 brute force, both versions' times;
+2f. K3 against its plain version (2,620, 65,536 and 1,007,616 docs, 8
+   and 64 queries, k 10 and 64, fp32 and bf16, and a masked tail with
+   n_valid < k): ids equal, scores within 1e-5; times beside the plain
+   version's and torch.topk over a matmul's; then the fused entry
+   points (ops.dense_topk(fused=True) over the 2,620-doc corpus,
+   dense_topk_fused over 1,007,616 docs) with K3's launches counted;
+2g. the port's bench_scale at its default sizes with the column-major
+   row (matmul + top-k, K1's and K4's two-phase searches, bf16, 64
+   queries, k=10): its table, recall of the K1 and K4 rows >= 0.999,
+   and K1's and K4's launches over that run;
 3. a synthetic store made from --seed (default 1,000,000 docs) with
    its PQ and IVF artifacts, saved with the port's VectorStore.save
    under build/ and loaded back;
@@ -35,9 +50,10 @@ Phases, one output line each:
    engine's under the tie-aware rule, and the int8 engine's weighted
    results equal to the fp32 engine's.
 
-Then a JSON line with each kernel's launches, error and times, and last
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
-code is non-zero and that last line is not printed.
+Then a JSON line with each kernel's launches, error, times and bound,
+and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
+the exit code is non-zero and that last line is not printed. No module
+of the JAX package (``legal_rag_tpu``) may be loaded by the end.
 
 Run from the repository root:  python3 chip_smoke.py [--docs N] [--seed S]
 """
@@ -77,6 +93,14 @@ RRF_SWAP = 1.0 / 61 - 1.0 / 62
 TOPK_TOL = 1e-5     # tie band of tests/test_dense.py
 DENSE_TOL = 1e-5    # GPU vs CPU engine: query embeddings and dot products
                     # in fp32 with other summation orders
+CM_TOL = 1e-5       # K4 vs plain: fp32 sums of 384 products in another order
+N_CM, N_CM_VALID = 1 << 20, 1_000_003     # K4's docs; an odd n_valid
+N_K3 = (2_620, 65_536, 1_007_616)   # the serving corpus, LARGE_N_THRESHOLD,
+                                    # the 1M store's padded rows
+K3_TOL = 1e-5
+# one H100 SXM, dense peak rates from NVIDIA's H100 data sheet
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def check(cond: bool, what: str) -> None:
@@ -97,6 +121,15 @@ def time_cuda(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_ops: float, kind: str):
+    """The least time the card could take for this work, ms: the larger
+    of the bytes over the memory rate and the operations over the peak
+    rate of their type; returns ``(ms, "bytes" | "operations")``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def assert_topk_equiv(torch, q, docs, n_valid, k, got_s, got_i):
@@ -347,6 +380,202 @@ def phase_pq(torch, seed: int):
     return max_err, times, recall, (t_data, t_train)
 
 
+def phase_probe(torch) -> dict:
+    """P on its tie input: equal to its plain version and 33 on every
+    row; its launches over exactly that call, and the times of the
+    kernel, the plain version and torch.argmax."""
+    from legal_rag_tpu_torch.ops.argmax_probe import (
+        probe_input, row_argmax, row_argmax_reference,
+    )
+
+    x = probe_input("cuda")
+    reset_counts()
+    got = row_argmax(x)
+    torch.cuda.synchronize()
+    launches = read_counts()["P"]
+    check(torch.equal(got, row_argmax_reference(x))
+          and got.tolist() == [33] * 8, f"P gave {got.tolist()}")
+    kernel = lambda: row_argmax(x)
+    plain = lambda: row_argmax_reference(x)
+    p1, ka, kb, p2 = (time_cuda(torch, f) for f in (plain, kernel, kernel, plain))
+    return {"rows": 33, "launches": launches, "ms": (ka + kb) / 2,
+            "plain_ms": (p1 + p2) / 2,
+            "library_ms": time_cuda(torch, lambda: torch.argmax(x, dim=1))}
+
+
+def colmajor_docs(torch, seed: int):
+    """``[N_CM, DIM]`` fp32 unit rows on the card with duplicate docs
+    across segments and across ``N_CM_VALID``."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    docs = torch.randn(N_CM, DIM, generator=g, device="cuda")
+    docs /= docs.norm(dim=1, keepdim=True)
+    docs[500_000:500_040] = docs[123]
+    docs[999_990:1_000_010] = docs[77]
+    return docs
+
+
+def unit_queries(torch, g, qp: int, docs32):
+    q = torch.randn(qp, DIM, generator=g, device="cuda")
+    q /= q.norm(dim=1, keepdim=True)
+    q[1] = docs32[123]
+    return q
+
+
+def phase_k4(torch, docs32, seed: int):
+    """K4 against its plain version, and dense_topk_twophase's top-20
+    against float64; returns the max error and the times."""
+    from legal_rag_tpu_torch.ops.dense import dense_topk_twophase
+    from legal_rag_tpu_torch.ops.segmax_cm import (
+        n_segments, segmax_cm, segmax_cm_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    max_err, times = 0.0, {}
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        docs_t = docs32.T.contiguous().to(dtype)
+        for qp in (8, 64):
+            q = unit_queries(torch, g, qp, docs32).to(dtype)
+            for seg_rows in (8, 16):
+                for n_valid in (N_CM, N_CM_VALID):
+                    got = segmax_cm(q, docs_t, n_valid, seg_rows)
+                    ref = segmax_cm_reference(q, docs_t, n_valid, seg_rows)
+                    torch.cuda.synchronize()
+                    check(got.shape == ref.shape
+                          == (qp, n_segments(N_CM, seg_rows)), "K4 shape")
+                    check(bool(torch.isfinite(got).all()), "K4 non-finite")
+                    err = float((got - ref).abs().max())
+                    check(err <= CM_TOL, f"K4 {tag} Q={qp} seg_rows "
+                          f"{seg_rows} n_valid {n_valid}: error {err}")
+                    max_err = max(max_err, err)
+                k4 = lambda: segmax_cm(q, docs_t, N_CM, seg_rows)
+                plain = lambda: segmax_cm_reference(q, docs_t, N_CM, seg_rows)
+                p1, ka, kb, p2 = (time_cuda(torch, f)
+                                  for f in (plain, k4, k4, plain))
+                elt = docs_t.element_size()
+                times[(tag, qp, seg_rows)] = {
+                    "k4_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
+                    "bound": bound(
+                        N_CM * DIM * elt + qp * DIM * elt
+                        + qp * n_segments(N_CM, seg_rows) * 4,
+                        2 * qp * N_CM * DIM, tag),
+                }
+            s, i = dense_topk_twophase(q, docs_t, 20, n_valid=N_CM_VALID)
+            assert_topk_equiv(torch, q.float(), docs_t.T.float(), N_CM_VALID,
+                              20, s, i)
+            check({123, *range(500_000, 500_019)} <= set(i[1].tolist()),
+                  "K4 two-phase: duplicate ties")
+            times[(tag, qp, 8)]["twophase_ms"] = time_cuda(
+                torch, lambda: dense_topk_twophase(q, docs_t, 32))
+        del docs_t
+    return max_err, times
+
+
+def phase_k3(torch, docs32, seed: int):
+    """K3 against its plain version (equal ids, scores within K3_TOL);
+    returns the max error, the times and the count of cases whose
+    scores were bit-equal."""
+    from legal_rag_tpu_torch.ops.fused_topk import (
+        fused_topk, fused_topk_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    max_err, times, cases, bit_equal = 0.0, {}, 0, 0
+
+    def compare(q, docs_t, k, n_valid=None, what=""):
+        nonlocal max_err, cases, bit_equal
+        got_s, got_i = fused_topk(q, docs_t, k, n_valid)
+        ref_s, ref_i = fused_topk_reference(q, docs_t, k, n_valid)
+        torch.cuda.synchronize()
+        check(got_s.shape == (q.shape[0], k), f"K3 shape {what}")
+        check(torch.equal(got_i, ref_i), f"K3 ids {what}: "
+              f"{int((got_i != ref_i).sum())} differ")
+        err = float((got_s - ref_s).abs().max())
+        check(err <= K3_TOL, f"K3 scores {what}: error {err}")
+        max_err = max(max_err, err)
+        cases += 1
+        bit_equal += bool(torch.equal(got_s, ref_s))
+        return got_s, got_i
+
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        full = docs32.T.contiguous().to(dtype)
+        for n in N_K3:
+            docs_t = full[:, :n]          # a column slice: row stride N_CM
+            for qp in (8, 64):
+                q = unit_queries(torch, g, qp, docs32).to(dtype)
+                for k in (10, 64):
+                    _, i = compare(q, docs_t, k, what=f"{tag} N={n} Q={qp} k={k}")
+                    if n > 500_040:
+                        dups = range(500_000, 500_000 + min(k - 1, 40))
+                        check({123, *dups} <= set(i[1].tolist()),
+                              "K3 duplicate ties")
+                it, wu = (5, 1) if n > 100_000 else (20, 3)
+                k3 = lambda: fused_topk(q, docs_t, 10)
+                plain = lambda: fused_topk_reference(q, docs_t, 10)
+                p1, ka, kb, p2 = (time_cuda(torch, f, iters=it, warmup=wu)
+                                  for f in (plain, k3, k3, plain))
+                elt = docs_t.element_size()
+                t = {"k3_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
+                     "bound": bound(n * DIM * elt + qp * DIM * elt
+                                    + qp * 10 * 8, 2 * qp * n * DIM, tag),
+                     "library_ms": None}
+                if dtype == torch.float32:
+                    t["library_ms"] = time_cuda(
+                        torch, lambda: torch.topk(q @ docs_t, 10, dim=1))
+                times[(tag, n, qp)] = t
+        # the masked tail: n_valid < k, masked ids ascending at finfo.min
+        q = unit_queries(torch, g, 8, docs32).to(dtype)
+        s, i = compare(q, full[:, :N_K3[0]], 64, n_valid=40,
+                       what=f"{tag} masked tail")
+        check(bool((i[:, 40:] == torch.arange(40, 64, device="cuda")).all()),
+              "K3 masked tail ids")
+        check(bool((s[:, 40:] == torch.finfo(torch.float32).min).all()),
+              "K3 masked tail scores")
+        del full
+    return max_err, times, (cases, bit_equal)
+
+
+def phase_k3_path(torch, docs32, seed: int):
+    """The fused entry points as a user calls them: ops.dense_topk(
+    fused=True) over the 2,620-doc corpus (row-major docs) and
+    dense_topk_fused over 1,007,616 column-major docs, each top-10
+    exact under the tie rule; returns K3's launches over exactly that."""
+    import legal_rag_tpu_torch.ops as ops
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    q = unit_queries(torch, g, 8, docs32)
+    small = docs32[:N_K3[0]].contiguous()
+    big_t = docs32[:N_K3[2]].T.contiguous()
+    reset_counts()
+    s1, i1 = ops.dense_topk(q, small, 10, fused=True)
+    s2, i2 = ops.dense_topk_fused(q, big_t, 10)
+    torch.cuda.synchronize()
+    launches = read_counts()["K3"]
+    assert_topk_equiv(torch, q, small, N_K3[0], 10, s1, i1)
+    assert_topk_equiv(torch, q, docs32, N_K3[2], 10, s2, i2)
+    check(launches == 2, f"K3 launched {launches}x on its entry points")
+    return launches
+
+
+def phase_bench(torch):
+    """bench_scale at its default sizes with the column-major row;
+    returns its rows and K1's and K4's launches over that run."""
+    from legal_rag_tpu_torch.scripts import bench_scale
+
+    reset_counts()
+    rows = bench_scale.run(bench_scale.DEFAULT_SIZES, "cuda", include_cm=True,
+                           log=lambda line: print(f"  bench_scale {line}",
+                                                  flush=True))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for r in rows:
+        if "recall" in r and r["name"] != "matmul + top-k":
+            check(r["recall"] >= 0.999, f"bench_scale {r['name']} N={r['n']}"
+                  f": recall {r['recall']} < 0.999")
+    check(counts["K1"] > 0 and counts["K4"] > 0, f"bench_scale launches "
+          f"{counts}")
+    return rows, counts
+
+
 def post(url: str, payload) -> dict:
     req = urllib.request.Request(
         url, data=json.dumps(payload).encode(),
@@ -487,18 +716,26 @@ def phase_store(n_docs: int, seed: int, device: str):
 
 
 def reset_counts() -> None:
+    from legal_rag_tpu_torch.ops.argmax_probe import P
+    from legal_rag_tpu_torch.ops.fused_topk import K3
     from legal_rag_tpu_torch.ops.pq_segmax import K2
+    from legal_rag_tpu_torch.ops.segmax_cm import K4
     from legal_rag_tpu_torch.ops.segmax_rm import K1
 
     K1.launches = K1.int8_launches = K2.launches = 0
+    K3.launches = K4.launches = P.launches = 0
 
 
 def read_counts() -> dict:
+    from legal_rag_tpu_torch.ops.argmax_probe import P
+    from legal_rag_tpu_torch.ops.fused_topk import K3
     from legal_rag_tpu_torch.ops.pq_segmax import K2
+    from legal_rag_tpu_torch.ops.segmax_cm import K4
     from legal_rag_tpu_torch.ops.segmax_rm import K1
 
     return {"K1": K1.launches, "K1-int8": K1.int8_launches,
-            "K2": K2.launches}
+            "K2": K2.launches, "K3": K3.launches, "K4": K4.launches,
+            "P": P.launches}
 
 
 def tier_config(dtype: str, **dense):
@@ -759,15 +996,17 @@ def ptxas_registers(log: str) -> str:
             # a mangled name is <length><identifier>...: find the
             # identifier ending in _kernel, then its template arguments
             mangled, name = m.group(1), "?"
-            end = mangled.find("_kernelI") + len("_kernel")
+            k = re.search(r"_kernel(?=[IE])", mangled)
+            end = k.end() if k else 0
             for size in range(len("_kernel"), end):
                 if mangled[:end - size].endswith(str(size)):
-                    args = re.match(r"I(\w*?)EEv", mangled[end:])
+                    args = re.match(r"I(\w*?)E+v", mangled[end:])
                     args = args.group(1) if args else ""
                     args = re.sub(r"^f", "f32,", args)
                     args = args.replace("13__nv_bfloat16", "bf16,")
-                    args = re.sub(r"Li(\d+)E", r"\1,", args).strip(",")
-                    name = f"{mangled[end - size:end]}<{args}>"
+                    args = re.sub(r"Li(\d+)E?", r"\1,", args).strip(",")
+                    name = mangled[end - size:end] + (f"<{args}>" if args
+                                                      else "")
                     break
         elif name and "Used " in ln:
             out.append(f"{name}: {ln.split('Used ')[1].split(' registers')[0]}")
@@ -776,11 +1015,14 @@ def ptxas_registers(log: str) -> str:
 
 
 def build_kernels() -> dict:
-    """Build K1 and K2 at once (one nvcc each); returns, per kernel, its
-    source, build seconds and ptxas registers per instantiation."""
+    """Build every kernel at once (one nvcc each); returns, per kernel,
+    its source, build seconds and ptxas registers per instantiation."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from legal_rag_tpu_torch.ops.argmax_probe import P
+    from legal_rag_tpu_torch.ops.fused_topk import K3
     from legal_rag_tpu_torch.ops.pq_segmax import K2
+    from legal_rag_tpu_torch.ops.segmax_cm import K4
     from legal_rag_tpu_torch.ops.segmax_rm import K1
 
     def build(kernel):
@@ -788,12 +1030,12 @@ def build_kernels() -> dict:
         kernel.library()
         return time.time() - t0
 
-    kernels = {"K1": (K1, "segmax_rm.cu"), "K2": (K2, "pq_segmax.cu")}
+    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "P": P}
     with ThreadPoolExecutor(len(kernels)) as pool:
-        secs = {n: pool.submit(build, k) for n, (k, _) in kernels.items()}
+        secs = {n: pool.submit(build, k) for n, k in kernels.items()}
         secs = {n: f.result() for n, f in secs.items()}
-    return {n: (src, secs[n], ptxas_registers(k.build_log))
-            for n, (k, src) in kernels.items()}
+    return {n: (k.source, secs[n], ptxas_registers(k.build_log))
+            for n, k in kernels.items()}
 
 
 def main() -> int:
@@ -819,12 +1061,19 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # the plain versions' fp32 products in true fp32, as RetrievalEngine sets
+    torch.backends.cuda.matmul.allow_tf32 = False
     built = build_kernels()
+    probe = phase_probe(torch)
     print(f"phase 1 ok: {kind}, torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); " + "; ".join(
               f"{name} built from legal_rag_tpu_torch/csrc/{src} in "
               f"{secs:.2f} s (ptxas registers: {regs})"
-              for name, (src, secs, regs) in built.items()), flush=True)
+              for name, (src, secs, regs) in built.items())
+          + f"; P on its [8, 256] tie input (ones at 33 and 200) gave "
+          f"{probe['rows']} == plain, launched {probe['launches']}x, "
+          f"{probe['ms']:.4f} ms (plain {probe['plain_ms']:.4f} ms, "
+          f"torch.argmax {probe['library_ms']:.4f} ms)", flush=True)
 
     # -- 2. K1 against its plain version at the main path's shapes
     max_err, times, docs32 = phase_kernel(torch, args.seed)
@@ -868,6 +1117,52 @@ def main() -> int:
               f"EVAL_IVF_RECOVERY.json {RECOVERY_REPO[name]})"
               for name in recall), flush=True)
 
+    # -- 2e/2f/2g. the column-major kernels K4 and K3, their entry
+    # points, and bench_scale
+    docs_cm = colmajor_docs(torch, args.seed)
+    err_k4, times_k4 = phase_k4(torch, docs_cm, args.seed)
+    torch.cuda.empty_cache()
+    print(f"phase 2e ok: K4 == plain within {CM_TOL} (max abs err "
+          f"{err_k4:.3g}) at N={N_CM}, D={DIM}, seg_rows 8 and 16, n_valid "
+          f"{N_CM} and {N_CM_VALID}; dense_topk_twophase top-20 == float64 "
+          f"under the tie rule; " + "; ".join(
+              f"{tag} Q={qp} sr={sr}: K4 {t['k4_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ("
+              f"{t['bound'][1]})" + (f", two-phase top-32 "
+                                     f"{t['twophase_ms']:.4f} ms"
+                                     if "twophase_ms" in t else "")
+              for (tag, qp, sr), t in times_k4.items()), flush=True)
+    err_k3, times_k3, (k3_cases, k3_bits) = phase_k3(torch, docs_cm, args.seed)
+    torch.cuda.empty_cache()
+    print(f"phase 2f ok: K3 == plain in {k3_cases} cases (ids equal, scores "
+          f"within {K3_TOL}, max abs err {err_k3:.3g}, bit-equal in "
+          f"{k3_bits}), masked tail with n_valid 40 < k 64 included; "
+          + "; ".join(
+              f"{tag} N={n} Q={qp} k=10: K3 {t['k3_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ("
+              f"{t['bound'][1]})" + (f", torch.topk(q @ docs_t) "
+                                     f"{t['library_ms']:.4f} ms"
+                                     if t["library_ms"] is not None else "")
+              for (tag, n, qp), t in times_k3.items()), flush=True)
+    k3_launches = phase_k3_path(torch, docs_cm, args.seed)
+    del docs_cm
+    torch.cuda.empty_cache()
+    print(f"phase 2f ok: ops.dense_topk(fused=True) over {N_K3[0]} docs and "
+          f"dense_topk_fused over {N_K3[2]} docs, top-10 == float64 under "
+          f"the tie rule; K3 launched {k3_launches}x", flush=True)
+    bench_rows, bench_counts = phase_bench(torch)
+    torch.cuda.empty_cache()
+    print(f"phase 2g ok: bench_scale (bf16, Q=64, k=10) at "
+          f"{', '.join(str(n) for n in sorted({r['n'] for r in bench_rows}))}"
+          f" docs: recall of the K1 and K4 rows " + ", ".join(
+              f"{r['name'].split()[-1]} N={r['n']} {r['recall']}"
+              for r in bench_rows if r.get("name", "").startswith("two"))
+          + f"; winners " + ", ".join(
+              f"N={r['n']} {r['winner']}" for r in bench_rows
+              if "winner" in r)
+          + f"; K1 launched {bench_counts['K1']}x, K4 "
+          f"{bench_counts['K4']}x", flush=True)
+
     # -- 3. synthetic store at serving scale, with PQ and IVF artifacts
     store, expansions = phase_store(args.docs, args.seed, "cuda")
     check(store.pq_codes is not None and store.ivf_centroids is not None,
@@ -890,39 +1185,49 @@ def main() -> int:
     phase_compare_tiers(store, tier_engines, ivf_engine, engine, expansions)
 
     check("jax" not in sys.modules, "the run imported jax")
-    main_t = times[("fp32", 8)]
+    jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"
+                     or m.startswith("legal_rag_tpu."))
+    check(not jax_pkg, f"the run imported the JAX package: {jax_pkg}")
+    # each kernel's line at the main path's shapes: fp32, 8 queries
+    k1_t, k1_i8_t, k2_t = times[("fp32", 8)], times_i8[8], times_pq[(N_PQ, 8)]
+    k3_t, k4_t = times_k3[("fp32", N_K3[2], 8)], times_k4[("fp32", 8, 8)]
+    rows = [
+        ("segmax_rm (K1)", "segmax_rm.cu", "legal_rag_tpu/ops/dense.py:495",
+         counts["K1"], max_err, k1_t["k1_ms"], k1_t["plain_ms"],
+         bound(N_ROWS * DIM * 4 + 8 * DIM * 4 + 8 * N_ROWS // 8 * 4,
+               2 * 8 * N_ROWS * DIM, "fp32"), None),
+        ("segmax_rm int8 (K1-int8)", "segmax_rm.cu",
+         "legal_rag_tpu/ops/dense.py:515", tier_counts["int8"]["K1-int8"],
+         err_i8, k1_i8_t["k1_ms"], k1_i8_t["plain_ms"],
+         bound(N_ROWS * DIM + 8 * DIM + 8 * N_ROWS // 8 * 4,
+               2 * 8 * N_ROWS * DIM, "int8"), None),
+        ("pq_segmax (K2)", "pq_segmax.cu", "legal_rag_tpu/ops/pq.py:257",
+         ivf_counts["K2"] + tier_counts["pq"]["K2"], err_pq, k2_t["k2_ms"],
+         k2_t["plain_ms"],
+         bound(N_PQ * PQ_M + 8 * 2 * PQ_M * 16 * 2 + 8 * N_PQ // 8 * 4,
+               8 * N_PQ * 2 * PQ_M, "fp32"), None),
+        ("fused_topk (K3)", "fused_topk.cu", "legal_rag_tpu/ops/dense.py:147",
+         k3_launches, err_k3, k3_t["k3_ms"], k3_t["plain_ms"], k3_t["bound"],
+         k3_t["library_ms"]),
+        ("segmax_cm (K4)", "segmax_cm.cu", "legal_rag_tpu/ops/dense.py:277",
+         bench_counts["K4"], err_k4, k4_t["k4_ms"], k4_t["plain_ms"],
+         k4_t["bound"], None),
+        ("argmax_probe (P)", "argmax_probe.cu", "tests/test_tpu_hardware.py:53",
+         probe["launches"], 0, probe["ms"], probe["plain_ms"],
+         bound(8 * 256 * 4 + 8 * 4, 8 * 256, "fp32"), probe["library_ms"]),
+    ]
+    for name, _, _, launches, *_ in rows:
+        check(launches > 0, f"{name} was not launched on its path")
     print(json.dumps({"kernels": [
-        {
-            "name": "segmax_rm (K1)",
-            "route": "cuda",
-            "source": "legal_rag_tpu_torch/csrc/segmax_rm.cu",
-            "replaces": "legal_rag_tpu/ops/dense.py:495",
-            "launches": counts["K1"],
-            "max_abs_err": max_err,
-            "ms": main_t["k1_ms"],
-            "plain_ms": main_t["plain_ms"],
-        },
-        {
-            "name": "segmax_rm int8 (K1-int8)",
-            "route": "cuda",
-            "source": "legal_rag_tpu_torch/csrc/segmax_rm.cu",
-            "replaces": "legal_rag_tpu/ops/dense.py:515",
-            "launches": tier_counts["int8"]["K1-int8"],
-            "max_abs_err": err_i8,
-            "ms": times_i8[8]["k1_ms"],
-            "plain_ms": times_i8[8]["plain_ms"],
-        },
-        {
-            "name": "pq_segmax (K2)",
-            "route": "cuda",
-            "source": "legal_rag_tpu_torch/csrc/pq_segmax.cu",
-            "replaces": "legal_rag_tpu/ops/pq.py:257",
-            "launches": ivf_counts["K2"] + tier_counts["pq"]["K2"],
-            "max_abs_err": err_pq,
-            "ms": times_pq[(N_PQ, 8)]["k2_ms"],
-            "plain_ms": times_pq[(N_PQ, 8)]["plain_ms"],
-        },
+        {"name": name, "route": "cuda",
+         "source": f"legal_rag_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": launches, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+         "library_ms": library_ms}
+        for name, src, replaces, launches, err, ms, plain_ms, bnd, library_ms
+        in rows
     ]}))
+
     print(f"total {time.time() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -2,11 +2,11 @@
 
 Same layout as the JAX package, which stays the reference: each module
 here has its counterpart at the same path under ``legal_rag_tpu``. The
-port imports ``torch`` and never ``jax``; pure-host modules of the JAX
-package that import no JAX (``config``, ``utils.timing``, ``server.*``)
-are reused by import. The one TPU kernel on the serving path, the
-row-major segment max (K1), is a hand-written CUDA kernel
-(``csrc/segmax_rm.cu``, ``ops/segmax_rm.py``).
+port imports ``torch`` and never ``jax``, nor any module of the JAX
+package: the pure-host modules it needs (``config``, ``utils.timing``,
+``server.*``, ``ingest``) are copies of their own. The TPU kernels are
+hand-written CUDA kernels under ``csrc/``, each beside a plain PyTorch
+version that CPU tensors take.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 Loads a store built by the JAX package (``python -m legal_rag_tpu
 build``), warms the serving path up, and serves the HTTP API of
-``legal_rag_tpu.server.app`` with the port's engine injected. Honours
+``legal_rag_tpu_torch.server.app`` with the port's engine injected. Honours
 ``LEGAL_RAG_NO_RERANK=1`` (serve without the cross-encoder) and
 ``LEGAL_RAG_NO_COALESCE=1`` (one device dispatch per request) as the
 JAX server does. ``--dense-dtype {float32,bfloat16,int8,pq}`` (or
@@ -39,7 +39,7 @@ DENSE_DTYPES = ("float32", "bfloat16", "int8", "pq")
 def serving_config(dense_dtype: Optional[str] = None):
     """The default retrieval config with the dense storage tier set by
     ``dense_dtype``, else by ``LEGAL_RAG_DENSE_DTYPE``, else unchanged."""
-    from legal_rag_tpu.config import DEFAULT_CONFIG
+    from legal_rag_tpu_torch.config import DEFAULT_CONFIG
 
     dtype = dense_dtype or os.environ.get("LEGAL_RAG_DENSE_DTYPE")
     if not dtype:
@@ -55,7 +55,7 @@ def serving_config(dense_dtype: Optional[str] = None):
 def load_engine(store_dir: str, device: str, dense_dtype: Optional[str] = None):
     """The serving engine, warmed up, with request coalescing unless
     ``LEGAL_RAG_NO_COALESCE=1``."""
-    from legal_rag_tpu.server.source_fetcher import set_default_catalog
+    from legal_rag_tpu_torch.server.source_fetcher import set_default_catalog
     from legal_rag_tpu_torch.retrieval.facade import LegalEngine
 
     rerank = False if os.environ.get("LEGAL_RAG_NO_RERANK", "") == "1" else None
@@ -76,7 +76,7 @@ class BackgroundServer:
     callers that drive it from the same process (tests, smoke runs)."""
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0):
-        from legal_rag_tpu.server.app import run_server
+        from legal_rag_tpu_torch.server.app import run_server
 
         if port == 0:
             with socket.socket() as s:
@@ -152,7 +152,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         level=logging.INFO,
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
     )
-    from legal_rag_tpu.server.app import run_server
+    from legal_rag_tpu_torch.server.app import run_server
 
     engine = load_engine(args.store, args.device, args.dense_dtype)
     asyncio.run(run_server(engine=engine, host=args.host, port=args.port))

@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from legal_rag_tpu.config import EncoderConfig
+from legal_rag_tpu_torch.config import EncoderConfig
 from legal_rag_tpu_torch.index.store import VectorStore
 from legal_rag_tpu_torch.models.wordpiece import build_wordpiece_vocab
 from legal_rag_tpu_torch.ops.sparse import BM25Index, tokenize
@@ -190,7 +190,7 @@ def synthesize_store(
     vocab_queries: Sequence[str] = (),
     cfg: Optional[EncoderConfig] = None,
     vocab_size: int = 50_000,
-    device="cpu",
+    device="cuda",
 ) -> VectorStore:
     """A store of ``n_docs`` synthetic chunks (see module doc).
 

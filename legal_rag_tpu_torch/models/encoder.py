@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from legal_rag_tpu.config import EncoderConfig
+from legal_rag_tpu_torch.config import EncoderConfig
 from legal_rag_tpu_torch.models.convert import (
     MiniLMParams, minilm_state_dict_from_jax,
 )
@@ -39,7 +39,7 @@ class SentenceEncoder:
         cfg: Optional[EncoderConfig] = None,
         params: Optional[MiniLMParams] = None,
         tokenizer: Optional[WordPieceTokenizer] = None,
-        device="cpu",
+        device="cuda",
     ):
         if params is None:
             raise ValueError(

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from legal_rag_tpu.config import EncoderConfig
+from legal_rag_tpu_torch.config import EncoderConfig
 
 
 class _Attention(nn.Module):

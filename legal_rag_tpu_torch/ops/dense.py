@@ -1,6 +1,6 @@
 """Dense (semantic) search: exact inner-product top-k.
 
-Two backends with the JAX package's semantics (scores are fp32 inner
+Backends with the JAX package's semantics (scores are fp32 inner
 products, sorted descending, ties broken by ascending doc id):
 
 - :func:`dense_topk_matmul` — one matmul and a top-k over the full
@@ -11,6 +11,14 @@ products, sorted descending, ties broken by ascending doc id):
   phase 2 takes the best segments, gathers and rescores their members
   in fp32 and sorts by (score desc, id asc). int8 docs (with
   per-segment scales) take int8 queries and score in the int8 metric.
+- :func:`dense_topk_twophase` — the same two phases over docs stored
+  transposed, ``docs_t [D, N]``, around kernel K4
+  (:mod:`legal_rag_tpu_torch.ops.segmax_cm`; segments strided 128 apart).
+- :func:`dense_topk_fused` — kernel K3
+  (:mod:`legal_rag_tpu_torch.ops.fused_topk`): matmul and running top-k
+  in one pass over ``docs_t``, never writing the ``[Q, N]`` scores.
+- :func:`dense_topk` — the dispatcher of the public ``ops`` API over
+  ``[N, D]`` docs: matmul, or K3 with ``fused=True``.
 - :func:`exact_rescore` — the host fp32 rescore that restores exact
   order over the int8 and PQ tiers' oversampled candidates.
 """
@@ -22,6 +30,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from legal_rag_tpu_torch.ops.fused_topk import fused_topk
+from legal_rag_tpu_torch.ops.segmax_cm import segmax_cm, segment_members
 from legal_rag_tpu_torch.ops.segmax_rm import segmax_rm
 
 # Dispatch constants, copied from legal_rag_tpu/ops/dense.py so that the
@@ -170,6 +180,82 @@ def dense_topk_twophase_rm(
     scores = torch.where(cand < limit, scores, float("-inf"))
     scores, ids = sort_score_desc_id_asc(scores, cand)
     return scores[:, :k], ids[:, :k].int()
+
+
+def dense_topk_twophase(
+    queries: torch.Tensor,      # [Q, D], the docs' dtype
+    docs_t: torch.Tensor,       # [D, N] float32 or bfloat16, column-major docs
+    k: int,
+    *,
+    n_valid: Optional[int] = None,
+    seg_rows: int = TWOPHASE_SEG_ROWS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Column-major large-N exact top-k: K4 segment maxima, then an exact
+    refine. The counterpart of ``legal_rag_tpu.ops.dense.
+    dense_topk_twophase``; its ``block_n`` and ``block_q`` only set the
+    TPU's padding and are not taken here.
+
+    Only columns ``< min(N, n_valid)`` compete. Phase 1 (K4) gives the
+    ``[Q, n_segs]`` maxima of segments of ``seg_rows`` docs strided 128
+    apart. Phase 2 takes the best ``kk = min(k + _TIE_OVERSAMPLE,
+    n_segs)`` segments by one flat top-kk, recovers their members by
+    index arithmetic, gathers those columns, rescores them in fp32,
+    masks members past the limit to -inf and sorts by (score desc, id
+    asc). The JAX package selects segments in two levels above
+    ``_TWO_LEVEL_MIN_SEGS``; both pick the top-kk segments, so under the
+    shared tie contract (exact while fewer than ``_TIE_OVERSAMPLE``
+    segments tie at the boundary) the results are the same. Returns
+    ``(scores [Q, k] f32, ids [Q, k] i32)``.
+    """
+    q, d = queries.shape
+    d2, n = docs_t.shape
+    if d != d2:
+        raise ValueError(f"dim mismatch {d} vs {d2}")
+    limit = n if n_valid is None else max(0, min(n, int(n_valid)))
+    seg_m = segmax_cm(queries.contiguous(), docs_t, limit, seg_rows)
+    kk = min(k + _TIE_OVERSAMPLE, seg_m.shape[1])
+    seg_pos = torch.topk(seg_m, kk, dim=1, sorted=False).indices   # [Q, kk]
+    cand = segment_members(seg_pos, seg_rows).reshape(q, kk * seg_rows)
+    gathered = docs_t[:, cand.clamp(max=n - 1)]                 # [D, Q, C]
+    scores = torch.einsum("qd,dqc->qc", queries.float(), gathered.float())
+    scores = torch.where(cand < limit, scores, float("-inf"))
+    scores, ids = sort_score_desc_id_asc(scores, cand)
+    return scores[:, :k], ids[:, :k].int()
+
+
+def dense_topk_fused(
+    queries: torch.Tensor,      # [Q, D], the docs' dtype
+    docs_t: torch.Tensor,       # [D, N] float32 or bfloat16, column-major docs
+    k: int,
+    *,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused matmul + top-k without the ``[Q, N]`` scores (kernel K3):
+    ``(scores [Q, k] f32, ids [Q, k] i32)``, ties by ascending id. The
+    counterpart of ``legal_rag_tpu.ops.dense.dense_topk_pallas``, whose
+    ``block_n`` and ``block_q`` only set the TPU's padding. Columns
+    ``>= min(N, n_valid)`` score ``finfo(float32).min`` and still
+    compete, so with ``n_valid < k`` the tail holds masked ids in
+    ascending order; ``k > N`` raises."""
+    return fused_topk(queries.contiguous(), docs_t, k, n_valid)
+
+
+def dense_topk(
+    queries: torch.Tensor,      # [Q, D]
+    docs: torch.Tensor,         # [N, D]
+    k: int,
+    *,
+    fused: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over row-major docs: :func:`dense_topk_matmul`, or
+    with ``fused=True`` kernel K3 (:func:`dense_topk_fused`) on one
+    transposed copy of ``docs`` (callers that keep a persistent index
+    should store ``docs.T`` and call that directly). The counterpart of
+    ``legal_rag_tpu.ops.dense.dense_topk``, ``fused`` of its
+    ``use_pallas``."""
+    if fused:
+        return dense_topk_fused(queries, docs.T.contiguous(), k)
+    return dense_topk_matmul(queries, docs, k)
 
 
 def exact_rescore(

@@ -108,7 +108,7 @@ def _kmeans_subspace(
 
 def _train_pq_sample(
     x: np.ndarray, n_sub: int, iters: int, rng: np.random.Generator,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """16-centroid k-means codebooks for a pre-sampled ``[S, D]``."""
     s, d = x.shape
@@ -131,7 +131,7 @@ def train_pq(
     sample: int = 65536,
     seed: int = 0,
     opq_iters: int = 0,
-    device="cpu",
+    device="cuda",
 ) -> PQCodebook:
     """Train 4-bit PQ codebooks: ``2m`` nibble subspaces, 16 centroids
     each (``m`` packed bytes/doc); with ``opq_iters > 0`` also an OPQ
@@ -174,7 +174,7 @@ def _nearest_nibbles(xb: torch.Tensor, c: torch.Tensor,
 
 
 def encode_pq(embeddings: np.ndarray, cb: PQCodebook,
-              batch: int = 131072, device="cpu") -> np.ndarray:
+              batch: int = 131072, device="cuda") -> np.ndarray:
     """Nearest centroid per nibble subspace (in the OPQ-rotated space
     when the codebook carries a rotation), two 4-bit codes packed per
     byte. Returns ``codes [N, m]`` uint8; batched, so device memory is
@@ -369,7 +369,7 @@ def build_ivf(
     iters: int = 15,
     seed: int = 0,
     batch: int = 131072,
-    device="cpu",
+    device="cuda",
 ) -> IVFIndex:
     """Cluster a PQ-coded corpus into balanced cells for coarse pruning:
     coarse k-means (``ceil(N / cell_size)`` centroids, trained on a

@@ -22,14 +22,10 @@ version of the same function; nothing else ever takes that path.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Optional
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import (
-    CSRC_DIR, build_shared_library,
-)
+from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
 
 SEG_ROWS = 8                          # the kernel's segment: 8 threads
 SUPPORTED_M = (8, 16, 32, 48)         # packed bytes per doc
@@ -65,38 +61,12 @@ def pq_segmax_reference(
     return scores.view(q, n_segs, seg_rows).amax(dim=2)
 
 
-class PQSegmaxKernel:
-    """The built library and the count of kernel launches."""
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self.build_log = ""
-        self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
-
-    def library(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                path, self.build_log = build_shared_library(
-                    "pq_segmax", [CSRC_DIR / "pq_segmax.cu"]
-                )
-                lib = ctypes.CDLL(str(path))
-                fn = lib.pq_segmax_launch
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p,
-                ]
-                fn.restype = ctypes.c_int
-                self._lib = lib
-            return self._lib
-
-    def count_launch(self) -> None:
-        with self._lock:
-            self.launches += 1
-
-
-K2 = PQSegmaxKernel()
+K2 = CudaKernel("pq_segmax", "pq_segmax.cu", {
+    "pq_segmax_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ],
+})
 
 
 def pq_segmax(

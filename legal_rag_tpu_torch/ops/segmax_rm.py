@@ -22,14 +22,10 @@ version of the same function; nothing else ever takes that path.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Optional
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import (
-    CSRC_DIR, build_shared_library,
-)
+from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
 
 SEG_ROWS = 8                          # the kernel's warp layout: 8 rows
 SUPPORTED_DIMS = (128, 256, 384, 512, 768)
@@ -63,34 +59,20 @@ def segmax_rm_reference(
     return seg.T.contiguous()
 
 
-class SegmaxKernel:
-    """The built library and the counts of kernel launches: ``launches``
-    for float32/bfloat16 docs, ``int8_launches`` for the int8 tier."""
+class SegmaxKernel(CudaKernel):
+    """K1's library; ``launches`` counts float32/bfloat16 launches and
+    ``int8_launches`` those of the int8 tier."""
 
     def __init__(self) -> None:
-        self.launches = 0
+        super().__init__("segmax_rm", "segmax_rm.cu", {
+            "segmax_rm_launch": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ],
+        })
         self.int8_launches = 0
-        self.build_log = ""
-        self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
-
-    def library(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                path, self.build_log = build_shared_library(
-                    "segmax_rm", [CSRC_DIR / "segmax_rm.cu"]
-                )
-                lib = ctypes.CDLL(str(path))
-                fn = lib.segmax_rm_launch
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p,
-                ]
-                fn.restype = ctypes.c_int
-                self._lib = lib
-            return self._lib
 
     def count_launch(self, int8: bool = False) -> None:
         with self._lock:

@@ -106,7 +106,7 @@ class BM25Index:
         ``max_terms`` defaults to BM25Config.max_query_terms.
         """
         if max_terms is None:
-            from legal_rag_tpu.config import BM25Config
+            from legal_rag_tpu_torch.config import BM25Config
 
             max_terms = BM25Config.max_query_terms
         q = len(queries)

@@ -210,7 +210,7 @@ class ShardedIndex:
 
     @classmethod
     def from_pq_ivf(cls, ivf, codebooks: np.ndarray, rotation=None,
-                    device="cpu") -> "ShardedIndex":
+                    device="cuda") -> "ShardedIndex":
         """IVF-pruned PQ layout: cell-ordered codes, the cell means and
         the global-id permutation (-1 on the padded tail)."""
         return cls(
@@ -226,7 +226,7 @@ class ShardedIndex:
 
     @classmethod
     def from_pq(cls, codes: np.ndarray, codebooks: np.ndarray,
-                rotation=None, device="cpu") -> "ShardedIndex":
+                rotation=None, device="cuda") -> "ShardedIndex":
         return cls(
             docs=torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(device),
             n_docs=int(codes.shape[0]),
@@ -239,7 +239,7 @@ class ShardedIndex:
         cls,
         embeddings: np.ndarray,
         dtype: str = "float32",
-        device="cpu",
+        device="cuda",
         pq_m: int = 48,
     ) -> "ShardedIndex":
         if dtype not in ("float32", "bfloat16", "int8", "pq"):

@@ -25,8 +25,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from legal_rag_tpu.config import RetrievalConfig, DEFAULT_CONFIG
-from legal_rag_tpu.utils.timing import StageTimer
+from legal_rag_tpu_torch.config import RetrievalConfig, DEFAULT_CONFIG
+from legal_rag_tpu_torch.utils.timing import StageTimer
 from legal_rag_tpu_torch.index.store import VectorStore
 from legal_rag_tpu_torch.models.encoder import SentenceEncoder
 from legal_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
@@ -67,7 +67,7 @@ class RetrievalEngine:
         store: VectorStore,
         config: RetrievalConfig = DEFAULT_CONFIG,
         encoder: Optional[SentenceEncoder] = None,
-        device="cpu",
+        device="cuda",
     ):
         # fp32 matmuls in full fp32 on the GPU: the reference computes
         # with Precision.HIGHEST, and TF32 keeps about three digits
@@ -146,7 +146,7 @@ class RetrievalEngine:
         micro-batch window: one device dispatch serves them all
         (server/batching.py). Returns the coalescer for observability.
         """
-        from legal_rag_tpu.server.batching import RequestCoalescer
+        from legal_rag_tpu_torch.server.batching import RequestCoalescer
 
         self._coalescer = RequestCoalescer(
             self._search_batch_impl, window_s=window_s, max_batch=max_batch

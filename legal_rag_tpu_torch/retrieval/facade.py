@@ -12,7 +12,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-from legal_rag_tpu.config import RetrievalConfig, DEFAULT_CONFIG
+from legal_rag_tpu_torch.config import RetrievalConfig, DEFAULT_CONFIG
 from legal_rag_tpu_torch.index.store import VectorStore
 from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
 from legal_rag_tpu_torch.retrieval.llm import LLMClient, default_llm_client
@@ -31,7 +31,7 @@ class LegalEngine:
         responder_llm: Optional[LLMClient] = None,
         use_llm: bool = True,
         rerank: Optional[bool] = None,
-        device="cpu",
+        device="cuda",
     ):
         """``rerank``: None (default) auto-enables the cross-encoder
         precision stage when the store carries a trained checkpoint;
@@ -106,10 +106,10 @@ class LegalEngine:
         """Timeline anchors + confidence + sentence attribution over
         the engine result (the response layer the reference only
         specified in its ghost-module tests)."""
-        from legal_rag_tpu.server.adapter import (
+        from legal_rag_tpu_torch.server.adapter import (
             adapt_response, rag_view_from_engine,
         )
-        from legal_rag_tpu.server.sentence_attribution import (
+        from legal_rag_tpu_torch.server.sentence_attribution import (
             compute_sentence_attribution,
         )
 

@@ -128,7 +128,7 @@ def context_sources(context: List[Dict], limit: int = 4) -> List[LegalSource]:
 def _relevant_excerpt(query: str, body: str, max_chars: int = 400) -> str:
     """Query-aware excerpt: pick the sentences with the highest query-
     token overlap (in document order) instead of a blind prefix cut."""
-    from legal_rag_tpu.server.sentence_attribution import (
+    from legal_rag_tpu_torch.server.sentence_attribution import (
         split_into_sentences,
     )
 

@@ -4,19 +4,22 @@ Each kernel source under ``legal_rag_tpu_torch/csrc/`` has a plain C
 entry point and is compiled by ``nvcc`` alone (no PyTorch headers, so a
 build takes seconds), then loaded with :mod:`ctypes`. Libraries land in
 ``build/torch_kernels/<name>-<hash>/`` at the repository root, keyed by
-a hash of the source bytes and the compiler flags, so an edited source
-rebuilds and an unchanged one is reused.
+a hash of the source bytes, the headers beside them (``*.cuh``) and the
+compiler flags, so an edited source or header rebuilds and an unchanged
+one is reused. :class:`CudaKernel` holds one built library, its entry
+points' ctypes signatures and its count of launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC_DIR = REPO_ROOT / "legal_rag_tpu_torch" / "csrc"
@@ -68,6 +71,8 @@ def build_shared_library(
     h = hashlib.sha256()
     for src in sources:
         h.update(Path(src).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"
     lib = out_dir / f"lib{name}.so"
@@ -90,3 +95,39 @@ def build_shared_library(
         log.write_text(proc.stderr)
         os.replace(tmp, lib)
         return lib, proc.stderr
+
+
+class CudaKernel:
+    """One kernel library built from ``csrc/<source>``: ``library()``
+    builds and loads it once (thread-safe) and declares each entry
+    point's ctypes signature (every one returns the CUDA error as an
+    ``int``); ``launches`` counts the launches its wrapper reports
+    through ``count_launch()``; ``build_log`` keeps nvcc's report."""
+
+    def __init__(self, name: str, source: str,
+                 signatures: Dict[str, Sequence[type]]) -> None:
+        self.name = name
+        self.source = source
+        self.signatures = signatures
+        self.launches = 0
+        self.build_log = ""
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def library(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                path, self.build_log = build_shared_library(
+                    self.name, [CSRC_DIR / self.source]
+                )
+                lib = ctypes.CDLL(str(path))
+                for fn_name, argtypes in self.signatures.items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                self._lib = lib
+            return self._lib
+
+    def count_launch(self) -> None:
+        with self._lock:
+            self.launches += 1

@@ -5,10 +5,22 @@ original's. An edit on either side fails here until both agree."""
 
 import importlib
 import inspect
+import re
 
 import pytest
 
 COPIED_MODULES = [
+    "config",
+    "server",
+    "server.app",
+    "server.batching",
+    "server.adapter",
+    "server.schemas",
+    "server.sentence_attribution",
+    "server.source_fetcher",
+    "ingest",
+    "ingest.parser",
+    "ingest.pipeline",
     "models.wordpiece",
     "retrieval.llm",
     "retrieval.classifier",
@@ -78,6 +90,26 @@ def test_copy_is_verbatim(spec):
 @pytest.mark.parametrize("spec", COPIED_CONSTANTS)
 def test_copied_constant_matches(spec):
     assert _resolve("legal_rag_tpu_torch", spec) == _resolve("legal_rag_tpu", spec)
+
+
+def _without_profiler_lines(src: str):
+    return [ln for ln in src.splitlines()
+            if not re.search(r"profiler|trace", ln, re.I)]
+
+
+def test_stage_timer_is_a_copy_apart_from_its_profiler_lines():
+    """``utils.timing.StageTimer`` equals the JAX package's but for the
+    lines that name the profiler (torch's record_function in place of
+    jax's TraceAnnotation); ``device_trace`` is the port's own, tested in
+    tests/test_torch_timing.py."""
+    from legal_rag_tpu.utils import timing as ref
+    from legal_rag_tpu_torch.utils import timing as port
+
+    port_src = inspect.getsource(port.StageTimer)
+    ref_src = inspect.getsource(ref.StageTimer)
+    assert port_src != ref_src
+    assert _without_profiler_lines(port_src) == _without_profiler_lines(ref_src)
+    assert "jax" not in inspect.getsource(port)
 
 
 def test_copies_rewrite_only_import_lines():

@@ -80,7 +80,7 @@ def test_hybrid_matches_sharded_reference(
         jnp.asarray(weights), mesh=mesh, k=k, c=c, n_docs=n, mode=mode,
         sparse_mode=sparse_mode,
     )
-    tidx = tsh.ShardedIndex.from_embeddings(docs)
+    tidx = tsh.ShardedIndex.from_embeddings(docs, device="cpu")
     got = tsh.hybrid_search(
         tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
         torch.from_numpy(q_emb), torch.from_numpy(weights),
@@ -103,7 +103,7 @@ def test_small_shard_takes_the_matmul_path(monkeypatch):
     monkeypatch.setattr(tdense, "segmax_rm",
                         lambda *a, **kw: calls.append(1))
     docs, ids, w, q_emb, weights = _inputs(600)
-    tidx = tsh.ShardedIndex.from_embeddings(docs)
+    tidx = tsh.ShardedIndex.from_embeddings(docs, device="cpu")
     f, i, _, _ = tsh.hybrid_search(
         tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
         torch.from_numpy(q_emb), torch.from_numpy(weights),
@@ -124,7 +124,7 @@ def test_rrf_zero_score_quirk_is_reproduced():
         jidx.docs, jnp.asarray(ids), jnp.asarray(w), jnp.asarray(q_emb),
         jnp.asarray(weights), mesh=mesh, k=5, c=10, n_docs=600, mode="rrf",
     )
-    tidx = tsh.ShardedIndex.from_embeddings(docs)
+    tidx = tsh.ShardedIndex.from_embeddings(docs, device="cpu")
     got = tsh.hybrid_search(
         tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
         torch.from_numpy(q_emb), torch.from_numpy(weights),

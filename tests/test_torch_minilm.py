@@ -144,7 +144,7 @@ def test_sentence_encoder_matches_jax(params):
                            word=params["embeddings"]["word"][: len(vocab)])
     ref = JaxEncoder(cfg=cfg, params=p, tokenizer=WordPieceTokenizer(vocab),
                      prefer_tokenizer="python").encode(texts)
-    got = SentenceEncoder(cfg=cfg, params=p,
+    got = SentenceEncoder(cfg=cfg, params=p, device="cpu",
                           tokenizer=WordPieceTokenizer(vocab)).encode(texts)
     _assert_embeddings_close(got, ref)
 
@@ -153,4 +153,4 @@ def test_sentence_encoder_requires_weights():
     from legal_rag_tpu_torch.models.encoder import SentenceEncoder
 
     with pytest.raises(ValueError, match="encoder.npz"):
-        SentenceEncoder(cfg=CFG, params=None)
+        SentenceEncoder(cfg=CFG, params=None, device="cpu")

@@ -77,7 +77,8 @@ def assert_same_under_ties(got_s, got_i, ref_s, ref_i, tol=TOL):
 def test_train_pq_matches_jax(clustered, opq_iters):
     docs, _ = clustered
     ref = jpq.train_pq(docs, m=M, iters=15, seed=0, opq_iters=opq_iters)
-    got = tpq.train_pq(docs, m=M, iters=15, seed=0, opq_iters=opq_iters)
+    got = tpq.train_pq(docs, m=M, iters=15, seed=0, opq_iters=opq_iters,
+                        device="cpu")
     assert got.codebooks.shape == (2 * M, 16, D // (2 * M))
     np.testing.assert_allclose(got.codebooks, ref.codebooks, atol=1e-4,
                                rtol=0)
@@ -92,7 +93,8 @@ def test_train_pq_samples_rows_as_jax_does(clustered):
     """A sample smaller than N: the same rows are drawn."""
     docs, _ = clustered
     ref = jpq.train_pq(docs, m=M, iters=6, sample=500, seed=3)
-    got = tpq.train_pq(docs, m=M, iters=6, sample=500, seed=3)
+    got = tpq.train_pq(docs, m=M, iters=6, sample=500, seed=3,
+                        device="cpu")
     np.testing.assert_allclose(got.codebooks, ref.codebooks, atol=1e-4)
 
 
@@ -102,7 +104,8 @@ def test_encode_pq_matches_jax(clustered, jax_cb):
     nibbles are found in float64, excluded and counted."""
     docs, _ = clustered
     ref = jpq.unpack_codes(jpq.encode_pq(docs, jax_cb))
-    got = tpq.unpack_codes(tpq.encode_pq(docs, tpq.PQCodebook(*jax_cb)))
+    got = tpq.unpack_codes(tpq.encode_pq(docs, tpq.PQCodebook(*jax_cb),
+                                       device="cpu"))
     x = (docs.astype(np.float64) @ jax_cb.rotation).reshape(len(docs), 2 * M, -1)
     c = jax_cb.codebooks.astype(np.float64)
     logits = np.einsum("bmd,mcd->bmc", x, c) - 0.5 * (c * c).sum(2)[None]
@@ -209,7 +212,7 @@ def test_build_ivf_matches_jax(clustered, jax_cb, ivf):
     docs, _ = clustered
     codes, ref = ivf
     got = tpq.build_ivf(docs, tpq.PQCodebook(*jax_cb), codes, cell_size=64,
-                        iters=10, seed=0)
+                        iters=10, seed=0, device="cpu")
     assert got.cell_size == ref.cell_size and got.n_cells == ref.n_cells
     np.testing.assert_array_equal(got.doc_ids, ref.doc_ids)
     np.testing.assert_array_equal(got.codes, ref.codes)
@@ -375,7 +378,8 @@ def test_pq_engine_matches_jax(pq_store_dir, use_ivf, probes, mode):
     cfg = _cfg(use_ivf=use_ivf, ivf_probes=probes, pq_oversample=4)
     ref_engine = JaxEngine(JaxStore.load(pq_store_dir), config=cfg,
                            mesh=make_mesh(1))
-    engine = RetrievalEngine(VectorStore.load(pq_store_dir), config=cfg)
+    engine = RetrievalEngine(VectorStore.load(pq_store_dir), config=cfg,
+                             device="cpu")
     assert engine.index.docs.dtype == torch.uint8
     assert (engine.index.ivf_centroids is not None) == use_ivf
     assert engine.index.pq_rotation is not None
@@ -395,7 +399,7 @@ def test_pq_engine_trains_at_load_without_artifacts(pq_store_dir, caplog):
 
     store = dataclasses.replace(VectorStore.load(pq_store_dir), pq_codes=None,
                                 ivf_centroids=None)
-    engine = RetrievalEngine(store, config=_cfg())
+    engine = RetrievalEngine(store, config=_cfg(), device="cpu")
     assert "boot-time k-means" in caplog.text
     assert engine.index.docs.dtype == torch.uint8
     out = engine.search_batch(["police fir", "victim court"], k=3)

@@ -77,7 +77,7 @@ def test_int8_quantization_bit_equal(data, request, force):
         request.getfixturevalue("forced")
     _, docs = data
     ref = jsh.ShardedIndex.from_embeddings(docs, make_mesh(1), dtype="int8")
-    got = tsh.ShardedIndex.from_embeddings(docs, dtype="int8")
+    got = tsh.ShardedIndex.from_embeddings(docs, dtype="int8", device="cpu")
     assert got.docs.dtype == torch.int8 and got.n_docs == len(docs)
     np.testing.assert_array_equal(got.docs.numpy(), np.asarray(ref.docs))
     np.testing.assert_array_equal(got.doc_scales.numpy(),
@@ -89,7 +89,7 @@ def test_int8_segment_map_is_exact(data):
     """K1-int8's plain version: the int32 segment maxima of the int8
     dot products, rows >= n_valid at -2**30."""
     queries, docs = data
-    idx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8")
+    idx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8", device="cpu")
     q_i8, _ = tdense.quantize_queries(torch.from_numpy(queries))
     got = k1.segmax_rm_reference(q_i8, idx.docs, 4001)
     d64 = idx.docs.numpy().astype(np.int64)
@@ -102,7 +102,7 @@ def test_int8_segment_map_is_exact(data):
 @pytest.mark.parametrize("n_valid", [None, 4001, 3993])
 def test_int8_twophase_matches_jax(data, n_valid):
     queries, docs = data
-    idx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8")
+    idx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8", device="cpu")
     k = 12
     ref_s, ref_i = jax_twophase(
         jnp.asarray(queries), jnp.asarray(idx.docs.numpy()), k,
@@ -152,7 +152,7 @@ def test_int8_hybrid_both_dispatch_sides_match_jax(
         jnp.asarray(weights), jidx.doc_scales, mesh=mesh, k=10, c=20,
         n_docs=n, mode=mode,
     )
-    tidx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8")
+    tidx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8", device="cpu")
     got = tsh.hybrid_search(
         tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
         torch.from_numpy(q_emb), torch.from_numpy(weights),
@@ -204,7 +204,8 @@ def _engines(store_dir, cfg):
 
     jax_engine = JaxEngine(JaxStore.load(store_dir), config=cfg,
                            mesh=make_mesh(1))
-    return jax_engine, RetrievalEngine(VectorStore.load(store_dir), config=cfg)
+    return jax_engine, RetrievalEngine(VectorStore.load(store_dir), config=cfg,
+                                       device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["weighted", "rrf"])
@@ -228,8 +229,9 @@ def test_int8_weighted_engine_matches_port_fp32(store_dir):
     from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
 
     store = VectorStore.load(store_dir)
-    e32 = RetrievalEngine(store, config=_cfg("float32"))
-    e8 = RetrievalEngine(store, config=_cfg("int8", int8_oversample=10))
+    e32 = RetrievalEngine(store, config=_cfg("float32"), device="cpu")
+    e8 = RetrievalEngine(store, config=_cfg("int8", int8_oversample=10),
+                         device="cpu")
     r32 = e32.search_batch(QUERIES, k=5, mode="weighted")
     r8 = e8.search_batch(QUERIES, k=5, mode="weighted")
     for a, b in zip(r32, r8):
@@ -243,7 +245,7 @@ def test_serve_dense_dtype_reaches_the_engine(store_dir, monkeypatch, how,
                                               dtype):
     """``serve --dense-dtype`` and ``LEGAL_RAG_DENSE_DTYPE`` set the tier
     of the engine that the HTTP server is given."""
-    import legal_rag_tpu.server.app as app
+    import legal_rag_tpu_torch.server.app as app
     from legal_rag_tpu_torch import cli
 
     served = {}

@@ -225,7 +225,7 @@ def test_synthetic_store_matches_build_bm25():
     cfg = dataclasses.replace(CFG.encoder, vocab_size=3000)
     store = synthesize_store(2000, seed=7, planted=QUERIES[:3],
                              vocab_queries=QUERIES[3:], cfg=cfg,
-                             vocab_size=6000)
+                             vocab_size=6000, device="cpu")
     texts = [c["text"] for c in store.chunks]
     ref = build_bm25(texts)
     got = store.bm25
@@ -238,7 +238,7 @@ def test_synthetic_store_matches_build_bm25():
     assert 90 < lengths.mean() < 120
     assert all(w in ref.vocab for q in QUERIES for w in q.lower().split())
     # planted docs: the query's words, and the encoder's embedding of it
-    enc = SentenceEncoder(cfg=cfg, params=store.encoder_params,
+    enc = SentenceEncoder(cfg=cfg, params=store.encoder_params, device="cpu",
                           tokenizer=WordPieceTokenizer(store.wp_vocab))
     want = enc.encode(QUERIES[:3])
     for j, doc in enumerate(planted_ids(2000, 3)):
