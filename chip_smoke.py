@@ -34,6 +34,16 @@ Phases, one output line each:
    row (matmul + top-k, K1's and K4's two-phase searches, bf16, 64
    queries, k=10): its table, recall of the K1 and K4 rows >= 0.999,
    and K1's and K4's launches over that run;
+2h. the timing experiments' kernels: X1 (the stream probe) and X2 (the
+   tensor-core matmul probe) against their plain versions on 1,000,000
+   bf16 docs transposed ([384, N_pad]) at every block_n the roofline
+   experiment sweeps (X1's block maxima bit-equal, its in-order sum
+   within 1e-6 relative; X2 within 1e-5), cuBLAS ``q @ docs_t`` alone as
+   a yardstick, K4 at seg_rows 32 against its plain version; then the
+   six experiment scripts' run() at their default sizes (fewer timed
+   calls): the row-major recall@10 >= 0.999, every full path's top-10
+   equal to the flat select's under the tie rule, and K1's, K4's, X1's
+   and X2's launches over that run;
 3. a synthetic store made from --seed (default 1,000,000 docs) with
    its PQ and IVF artifacts, saved with the port's VectorStore.save
    under build/ and loaded back;
@@ -98,6 +108,13 @@ N_CM, N_CM_VALID = 1 << 20, 1_000_003     # K4's docs; an odd n_valid
 N_K3 = (2_620, 65_536, 1_007_616)   # the serving corpus, LARGE_N_THRESHOLD,
                                     # the 1M store's padded rows
 K3_TOL = 1e-5
+X1_SUM_RTOL = 1e-6  # X1's in-order sum vs plain's: fp32 adds of the same
+                    # maxima (the card's cumsum may order them otherwise)
+X2_TOL = 1e-5       # X2 vs plain: fp32 sums of 384 exact bf16 products of
+                    # unit-vector entries, in the tensor cores' order
+EXPERIMENTS = ("exp_dense_roofline", "exp_twophase_stages",
+               "exp_twophase_rowmajor", "exp_rm_stages",
+               "exp_select_variants", "exp_member_topk")
 # one H100 SXM, dense peak rates from NVIDIA's H100 data sheet
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -106,21 +123,6 @@ PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def time_cuda(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call over ``iters`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(n_bytes: float, n_ops: float, kind: str):
@@ -157,6 +159,7 @@ def assert_topk_equiv_scores(torch, s64, k, got_s, got_i):
 
 
 def phase_kernel(torch, seed: int):
+    from legal_rag_tpu_torch.utils.timing import time_ms
     from legal_rag_tpu_torch.ops.dense import (
         dense_topk_matmul, dense_topk_twophase_rm,
     )
@@ -193,10 +196,10 @@ def phase_kernel(torch, seed: int):
             check({123, *range(500_000, 500_019)} <= dup, "duplicate ties")
             k1 = lambda: segmax_rm(q, docs, N_VALID)
             plain = lambda: segmax_rm_reference(q, docs, N_VALID)
-            p1, k1a, k1b, p2 = (time_cuda(torch, f) for f in (plain, k1, k1, plain))
-            two = time_cuda(torch, lambda: dense_topk_twophase_rm(
+            p1, k1a, k1b, p2 = (time_ms(f) for f in (plain, k1, k1, plain))
+            two = time_ms(lambda: dense_topk_twophase_rm(
                 q, docs, 32, n_valid=N_VALID))
-            full = time_cuda(torch, lambda: dense_topk_matmul(
+            full = time_ms(lambda: dense_topk_matmul(
                 q, docs[:N_VALID], 32))
             times[(tag, qp)] = {
                 "k1_ms": (k1a + k1b) / 2, "plain_ms": (p1 + p2) / 2,
@@ -209,6 +212,7 @@ def phase_kernel(torch, seed: int):
 def phase_kernel_int8(torch, docs32, seed: int):
     """K1-int8 against its plain version on ``docs32`` quantized per
     segment (the int8 tier's ShardedIndex); returns the times."""
+    from legal_rag_tpu_torch.utils.timing import time_ms
     from legal_rag_tpu_torch.ops.dense import (
         dense_topk_twophase_rm, quantize_queries, sort_score_desc_id_asc,
     )
@@ -248,8 +252,8 @@ def phase_kernel_int8(torch, docs32, seed: int):
         check(torch.equal(s, want_s[:, :20]), "int8 top-20 scores")
         k1 = lambda: segmax_rm(q_i8, idx.docs, N_VALID)
         plain = lambda: segmax_rm_reference(q_i8, idx.docs, N_VALID)
-        p1, k1a, k1b, p2 = (time_cuda(torch, f) for f in (plain, k1, k1, plain))
-        two = time_cuda(torch, lambda: dense_topk_twophase_rm(
+        p1, k1a, k1b, p2 = (time_ms(f) for f in (plain, k1, k1, plain))
+        two = time_ms(lambda: dense_topk_twophase_rm(
             q, idx.docs, 32, n_valid=N_VALID, doc_scales=idx.doc_scales))
         times[qp] = {"k1_ms": (k1a + k1b) / 2, "plain_ms": (p1 + p2) / 2,
                      "twophase_ms": two}
@@ -293,6 +297,7 @@ def adc_scores64(torch, lut64, codes, block: int = 8192):
 def phase_pq(torch, seed: int):
     """K2 against its plain version and the recovery workload, on the
     recovery corpus trained and coded by the port on the card."""
+    from legal_rag_tpu_torch.utils.timing import time_ms
     import numpy as np
 
     from legal_rag_tpu_torch.ops.dense import exact_rescore
@@ -340,8 +345,8 @@ def phase_pq(torch, seed: int):
                                  20, s, i)
         k2 = lambda: pq_segmax(lut, codes_1m)
         plain = lambda: pq_segmax_reference(lut, codes_1m)
-        p1, ka, kb, p2 = (time_cuda(torch, f) for f in (plain, k2, k2, plain))
-        top = time_cuda(torch, lambda: pq_topk(q, codes_1m, cbs, 20))
+        p1, ka, kb, p2 = (time_ms(f) for f in (plain, k2, k2, plain))
+        top = time_ms(lambda: pq_topk(q, codes_1m, cbs, 20))
         times[(N_PQ, qp)] = {"k2_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
                              "pq_topk_ms": top}
     g = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -351,7 +356,7 @@ def phase_pq(torch, seed: int):
         lut = pq_lut(qrot[:qp], cbs).to(torch.bfloat16).contiguous()
         k2 = lambda: pq_segmax(lut, big)
         plain = lambda: pq_segmax_reference(lut, big)
-        p1, ka, kb, p2 = (time_cuda(torch, f, iters=5, warmup=1)
+        p1, ka, kb, p2 = (time_ms(f, iters=5, warmup=1)
                           for f in (plain, k2, k2, plain))
         times[(N_PQ_BIG, qp)] = {"k2_ms": (ka + kb) / 2,
                                  "plain_ms": (p1 + p2) / 2}
@@ -384,6 +389,7 @@ def phase_probe(torch) -> dict:
     """P on its tie input: equal to its plain version and 33 on every
     row; its launches over exactly that call, and the times of the
     kernel, the plain version and torch.argmax."""
+    from legal_rag_tpu_torch.utils.timing import time_ms
     from legal_rag_tpu_torch.ops.argmax_probe import (
         probe_input, row_argmax, row_argmax_reference,
     )
@@ -397,10 +403,10 @@ def phase_probe(torch) -> dict:
           and got.tolist() == [33] * 8, f"P gave {got.tolist()}")
     kernel = lambda: row_argmax(x)
     plain = lambda: row_argmax_reference(x)
-    p1, ka, kb, p2 = (time_cuda(torch, f) for f in (plain, kernel, kernel, plain))
+    p1, ka, kb, p2 = (time_ms(f) for f in (plain, kernel, kernel, plain))
     return {"rows": 33, "launches": launches, "ms": (ka + kb) / 2,
             "plain_ms": (p1 + p2) / 2,
-            "library_ms": time_cuda(torch, lambda: torch.argmax(x, dim=1))}
+            "library_ms": time_ms(lambda: torch.argmax(x, dim=1))}
 
 
 def colmajor_docs(torch, seed: int):
@@ -424,6 +430,7 @@ def unit_queries(torch, g, qp: int, docs32):
 def phase_k4(torch, docs32, seed: int):
     """K4 against its plain version, and dense_topk_twophase's top-20
     against float64; returns the max error and the times."""
+    from legal_rag_tpu_torch.utils.timing import time_ms
     from legal_rag_tpu_torch.ops.dense import dense_topk_twophase
     from legal_rag_tpu_torch.ops.segmax_cm import (
         n_segments, segmax_cm, segmax_cm_reference,
@@ -449,7 +456,7 @@ def phase_k4(torch, docs32, seed: int):
                     max_err = max(max_err, err)
                 k4 = lambda: segmax_cm(q, docs_t, N_CM, seg_rows)
                 plain = lambda: segmax_cm_reference(q, docs_t, N_CM, seg_rows)
-                p1, ka, kb, p2 = (time_cuda(torch, f)
+                p1, ka, kb, p2 = (time_ms(f)
                                   for f in (plain, k4, k4, plain))
                 elt = docs_t.element_size()
                 times[(tag, qp, seg_rows)] = {
@@ -464,8 +471,8 @@ def phase_k4(torch, docs32, seed: int):
                               20, s, i)
             check({123, *range(500_000, 500_019)} <= set(i[1].tolist()),
                   "K4 two-phase: duplicate ties")
-            times[(tag, qp, 8)]["twophase_ms"] = time_cuda(
-                torch, lambda: dense_topk_twophase(q, docs_t, 32))
+            times[(tag, qp, 8)]["twophase_ms"] = time_ms(
+                lambda: dense_topk_twophase(q, docs_t, 32))
         del docs_t
     return max_err, times
 
@@ -474,6 +481,7 @@ def phase_k3(torch, docs32, seed: int):
     """K3 against its plain version (equal ids, scores within K3_TOL);
     returns the max error, the times and the count of cases whose
     scores were bit-equal."""
+    from legal_rag_tpu_torch.utils.timing import time_ms
     from legal_rag_tpu_torch.ops.fused_topk import (
         fused_topk, fused_topk_reference,
     )
@@ -511,7 +519,7 @@ def phase_k3(torch, docs32, seed: int):
                 it, wu = (5, 1) if n > 100_000 else (20, 3)
                 k3 = lambda: fused_topk(q, docs_t, 10)
                 plain = lambda: fused_topk_reference(q, docs_t, 10)
-                p1, ka, kb, p2 = (time_cuda(torch, f, iters=it, warmup=wu)
+                p1, ka, kb, p2 = (time_ms(f, iters=it, warmup=wu)
                                   for f in (plain, k3, k3, plain))
                 elt = docs_t.element_size()
                 t = {"k3_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
@@ -519,8 +527,8 @@ def phase_k3(torch, docs32, seed: int):
                                     + qp * 10 * 8, 2 * qp * n * DIM, tag),
                      "library_ms": None}
                 if dtype == torch.float32:
-                    t["library_ms"] = time_cuda(
-                        torch, lambda: torch.topk(q @ docs_t, 10, dim=1))
+                    t["library_ms"] = time_ms(
+                        lambda: torch.topk(q @ docs_t, 10, dim=1))
                 times[(tag, n, qp)] = t
         # the masked tail: n_valid < k, masked ids ascending at finfo.min
         q = unit_queries(torch, g, 8, docs32).to(dtype)
@@ -574,6 +582,111 @@ def phase_bench(torch):
     check(counts["K1"] > 0 and counts["K4"] > 0, f"bench_scale launches "
           f"{counts}")
     return rows, counts
+
+
+def phase_probes(torch, seed: int):
+    """X1 and X2 against their plain versions on the roofline
+    experiment's data at every block_n it sweeps, cuBLAS ``q16 @
+    docs_t`` alone, and K4 at seg_rows 32 against its plain version;
+    returns the times per block_n, cuBLAS's time and K4's max error."""
+    from legal_rag_tpu_torch.utils.timing import time_ms
+    from legal_rag_tpu_torch.ops.mm_rowmax import (
+        mm_rowmax, mm_rowmax_reference,
+    )
+    from legal_rag_tpu_torch.ops.segmax_cm import (
+        n_segments, segmax_cm, segmax_cm_reference,
+    )
+    from legal_rag_tpu_torch.ops.stream_probe import (
+        stream_probe, stream_probe_reference,
+    )
+    from legal_rag_tpu_torch.scripts import exp_dense_roofline as roof
+
+    n = roof.N
+    q16, dt16 = roof.make_data(n, "cuda", seed)
+    x1, x2 = {}, {}
+    for bn in roof.STREAM_BN:
+        dpad = roof.pad_cols(dt16, bn)
+        nb = dpad.shape[1] // bn
+        got_m, got_t = stream_probe(dpad, bn)
+        ref_m, ref_t = stream_probe_reference(dpad, bn)
+        torch.cuda.synchronize()
+        check(got_m.shape == (nb,) and torch.equal(got_m, ref_m),
+              f"X1 bn={bn}: {int((got_m != ref_m).sum())} block maxima differ")
+        rel = abs(float(got_t) - float(ref_t)) / abs(float(ref_t))
+        check(rel <= X1_SUM_RTOL, f"X1 bn={bn}: sum rel err {rel}")
+        kernel = lambda: stream_probe(dpad, bn)
+        plain = lambda: stream_probe_reference(dpad, bn)
+        p1, ka, kb, p2 = (time_ms(f) for f in (plain, kernel, kernel, plain))
+        x1[bn] = {"ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
+                  "sum_rel_err": rel,
+                  "library_ms": time_ms(lambda: dpad.view(
+                      DIM, nb, bn).amax(dim=(0, 2))),
+                  "bound": bound(dpad.numel() * 2 + nb * 4 + 4, dpad.numel(),
+                                 "fp32")}
+        del dpad
+    for bn in roof.MATMUL_BN:
+        dpad = roof.pad_cols(dt16, bn)
+        nb = dpad.shape[1] // bn
+        got = mm_rowmax(q16, dpad, bn)
+        ref = mm_rowmax_reference(q16, dpad, bn)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape == (q16.shape[0], nb), "X2 shape")
+        err = float((got - ref).abs().max())
+        check(err <= X2_TOL, f"X2 bn={bn}: error {err}")
+        kernel = lambda: mm_rowmax(q16, dpad, bn)
+        plain = lambda: mm_rowmax_reference(q16, dpad, bn)
+        p1, ka, kb, p2 = (time_ms(f, iters=10, warmup=2)
+                          for f in (plain, kernel, kernel, plain))
+        x2[bn] = {"ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2, "err": err,
+                  "bound": bound((q16.numel() + dpad.numel()) * 2
+                                 + q16.shape[0] * nb * 4,
+                                 2 * q16.shape[0] * dpad.numel(), "bf16")}
+        if bn == roof.MATMUL_BN[0]:
+            cublas = time_ms(lambda: q16 @ dpad)
+        del dpad
+    # K4 at seg_rows 32, bf16 at 64 queries and fp32 at 8, odd n_valid
+    k4_err = 0.0
+    for docs_t, q in ((dt16, q16), (dt16.float(), q16[:8].float())):
+        for n_valid in (n, n - 4097):
+            got = segmax_cm(q, docs_t, n_valid, 32)
+            ref = segmax_cm_reference(q, docs_t, n_valid, 32)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape == (q.shape[0], n_segments(n, 32)),
+                  "K4 seg_rows 32 shape")
+            err = float((got - ref).abs().max())
+            check(err <= CM_TOL, f"K4 seg_rows 32 {docs_t.dtype} Q="
+                  f"{q.shape[0]} n_valid {n_valid}: error {err}")
+            k4_err = max(k4_err, err)
+    return x1, x2, cublas, k4_err
+
+
+def phase_experiments(torch):
+    """The six experiment scripts' run() at their default sizes, 5 timed
+    calls after 1 warm-up a row; returns their rows and the launches
+    over exactly that run."""
+    import importlib
+
+    reset_counts()
+    t0 = time.time()
+    rows = {}
+    for name in EXPERIMENTS:
+        script = importlib.import_module(f"legal_rag_tpu_torch.scripts.{name}")
+        rows[name] = script.run(
+            device="cuda", iters=5, warmup=1,
+            log=lambda line, name=name: print(f"  {name}: {line}", flush=True))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name, script_rows in rows.items():
+        for r in script_rows:
+            check(r.get("match", True), f"{name} {r['name']}: top-10 differs "
+                  f"from the flat select's")
+    recall = [r["recall"] for r in rows["exp_twophase_rowmajor"] if "recall" in r]
+    check(len(recall) == 1 and recall[0] >= 0.999,
+          f"exp_twophase_rowmajor recall@10 {recall}")
+    for kernel in ("K1", "K4", "X1", "X2"):
+        check(counts[kernel] > 0, f"the experiments never launched {kernel}: "
+              f"{counts}")
+    return rows, counts, recall[0], time.time() - t0
 
 
 def post(url: str, payload) -> dict:
@@ -718,24 +831,28 @@ def phase_store(n_docs: int, seed: int, device: str):
 def reset_counts() -> None:
     from legal_rag_tpu_torch.ops.argmax_probe import P
     from legal_rag_tpu_torch.ops.fused_topk import K3
+    from legal_rag_tpu_torch.ops.mm_rowmax import X2
     from legal_rag_tpu_torch.ops.pq_segmax import K2
     from legal_rag_tpu_torch.ops.segmax_cm import K4
     from legal_rag_tpu_torch.ops.segmax_rm import K1
+    from legal_rag_tpu_torch.ops.stream_probe import X1
 
     K1.launches = K1.int8_launches = K2.launches = 0
-    K3.launches = K4.launches = P.launches = 0
+    K3.launches = K4.launches = P.launches = X1.launches = X2.launches = 0
 
 
 def read_counts() -> dict:
     from legal_rag_tpu_torch.ops.argmax_probe import P
     from legal_rag_tpu_torch.ops.fused_topk import K3
+    from legal_rag_tpu_torch.ops.mm_rowmax import X2
     from legal_rag_tpu_torch.ops.pq_segmax import K2
     from legal_rag_tpu_torch.ops.segmax_cm import K4
     from legal_rag_tpu_torch.ops.segmax_rm import K1
+    from legal_rag_tpu_torch.ops.stream_probe import X1
 
     return {"K1": K1.launches, "K1-int8": K1.int8_launches,
             "K2": K2.launches, "K3": K3.launches, "K4": K4.launches,
-            "P": P.launches}
+            "P": P.launches, "X1": X1.launches, "X2": X2.launches}
 
 
 def tier_config(dtype: str, **dense):
@@ -1021,16 +1138,19 @@ def build_kernels() -> dict:
 
     from legal_rag_tpu_torch.ops.argmax_probe import P
     from legal_rag_tpu_torch.ops.fused_topk import K3
+    from legal_rag_tpu_torch.ops.mm_rowmax import X2
     from legal_rag_tpu_torch.ops.pq_segmax import K2
     from legal_rag_tpu_torch.ops.segmax_cm import K4
     from legal_rag_tpu_torch.ops.segmax_rm import K1
+    from legal_rag_tpu_torch.ops.stream_probe import X1
 
     def build(kernel):
         t0 = time.time()
         kernel.library()
         return time.time() - t0
 
-    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "P": P}
+    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "P": P, "X1": X1,
+               "X2": X2}
     with ThreadPoolExecutor(len(kernels)) as pool:
         secs = {n: pool.submit(build, k) for n, k in kernels.items()}
         secs = {n: f.result() for n, f in secs.items()}
@@ -1163,6 +1283,35 @@ def main() -> int:
           + f"; K1 launched {bench_counts['K1']}x, K4 "
           f"{bench_counts['K4']}x", flush=True)
 
+    # -- 2h. the timing experiments: X1 and X2, K4 at seg_rows 32, the
+    # six scripts
+    x1_t, x2_t, cublas_ms, err_k4_32 = phase_probes(torch, args.seed)
+    torch.cuda.empty_cache()
+    print(f"phase 2h ok: X1 == plain at N=1000000 (bf16 [384, N_pad]), "
+          f"block maxima bit-equal, in-order sum within {X1_SUM_RTOL} "
+          f"relative (max {max(t['sum_rel_err'] for t in x1_t.values()):.3g}); "
+          + "; ".join(
+              f"bn={bn}: X1 {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"amax {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]})" for bn, t in x1_t.items())
+          + f". X2 == plain within {X2_TOL} (max abs err "
+          f"{max(t['err'] for t in x2_t.values()):.3g}), Q=64; " + "; ".join(
+              f"bn={bn}: X2 {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+              for bn, t in x2_t.items())
+          + f"; cuBLAS q16 @ docs_t alone (bf16 out) {cublas_ms:.4f} ms. K4 "
+          f"seg_rows 32 == plain within {CM_TOL} (max abs err "
+          f"{err_k4_32:.3g}; bf16 Q=64, fp32 Q=8, n_valid 1000000 and "
+          f"995903)", flush=True)
+    exp_rows, exp_counts, exp_recall, exp_secs = phase_experiments(torch)
+    torch.cuda.empty_cache()
+    print(f"phase 2h ok: {len(EXPERIMENTS)} experiment scripts at their "
+          f"default sizes in {exp_secs:.1f} s ({sum(map(len, exp_rows.values()))}"
+          f" rows): exp_twophase_rowmajor recall@10 {exp_recall}; every full "
+          f"path's top-10 == the flat select's; K1 launched "
+          f"{exp_counts['K1']}x, K4 {exp_counts['K4']}x, X1 "
+          f"{exp_counts['X1']}x, X2 {exp_counts['X2']}x", flush=True)
+
     # -- 3. synthetic store at serving scale, with PQ and IVF artifacts
     store, expansions = phase_store(args.docs, args.seed, "cuda")
     check(store.pq_codes is not None and store.ivf_centroids is not None,
@@ -1188,7 +1337,8 @@ def main() -> int:
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"
                      or m.startswith("legal_rag_tpu."))
     check(not jax_pkg, f"the run imported the JAX package: {jax_pkg}")
-    # each kernel's line at the main path's shapes: fp32, 8 queries
+    # each kernel's line at the main path's shapes: fp32, 8 queries (X1
+    # and X2: the roofline experiment's bf16 docs, 64 queries, bn 8192)
     k1_t, k1_i8_t, k2_t = times[("fp32", 8)], times_i8[8], times_pq[(N_PQ, 8)]
     k3_t, k4_t = times_k3[("fp32", N_K3[2], 8)], times_k4[("fp32", 8, 8)]
     rows = [
@@ -1215,6 +1365,13 @@ def main() -> int:
         ("argmax_probe (P)", "argmax_probe.cu", "tests/test_tpu_hardware.py:53",
          probe["launches"], 0, probe["ms"], probe["plain_ms"],
          bound(8 * 256 * 4 + 8 * 4, 8 * 256, "fp32"), probe["library_ms"]),
+        ("stream_probe (X1)", "stream_probe.cu",
+         "scripts/exp_dense_roofline.py:188", exp_counts["X1"], 0.0,
+         x1_t[8192]["ms"], x1_t[8192]["plain_ms"], x1_t[8192]["bound"],
+         x1_t[8192]["library_ms"]),
+        ("mm_rowmax (X2)", "mm_rowmax.cu", "scripts/exp_dense_roofline.py:220",
+         exp_counts["X2"], x2_t[8192]["err"], x2_t[8192]["ms"],
+         x2_t[8192]["plain_ms"], x2_t[8192]["bound"], None),
     ]
     for name, _, _, launches, *_ in rows:
         check(launches > 0, f"{name} was not launched on its path")

@@ -50,6 +50,11 @@ _SCORE_MATRIX_BUDGET_BYTES = 1 << 30
 # boundary score (the reference's contract).
 _TIE_OVERSAMPLE = 64
 
+# Segment count from which :func:`select_segments` may select in two
+# levels, copied from legal_rag_tpu/ops/dense.py (tests lower it to
+# reach the two-level branch on small corpora).
+_TWO_LEVEL_MIN_SEGS = 16384
+
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Row-wise L2 normalization; zero rows stay zero."""
@@ -105,6 +110,45 @@ def quantize_queries(
     return q_i8.to(torch.int8), q_scale
 
 
+def gather_supers(s3: torch.Tensor, sup_idx: torch.Tensor) -> torch.Tensor:
+    """The member values ``[Q, kk * sup]`` of the super-segments
+    ``sup_idx [Q, kk]`` of ``s3 [Q, n_sup, sup]``, by one gather (the JAX
+    package's one-hot einsum worked around slow TPU gathers)."""
+    q, kk = sup_idx.shape
+    sup = s3.shape[2]
+    rows = torch.gather(s3, 1, sup_idx[:, :, None].expand(q, kk, sup))
+    return rows.reshape(q, kk * sup)
+
+
+def select_segments(
+    seg_m: torch.Tensor, kk: int, sup: Optional[int] = None
+) -> torch.Tensor:
+    """The top-``kk`` segment positions ``[Q, kk]`` (in no order) of the
+    map ``seg_m [Q, n_segs]``; the counterpart of
+    ``legal_rag_tpu.ops.dense._select_segments``.
+
+    ``sup=None`` takes one flat ``torch.topk`` over the map. An int
+    takes two levels, as the JAX package does, when ``n_segs >=
+    _TWO_LEVEL_MIN_SEGS``, ``sup`` divides ``n_segs`` and at least
+    ``kk`` super-segments exist (else the flat select): each run of
+    ``sup`` segments reduces to its max, the top-``kk`` of those maxima
+    pick super-segments, and a top-``kk`` over their ``kk * sup``
+    members picks the segments. The j-th best segment has at most j - 1
+    segments above it, hence at most j - 1 better super-segments, so
+    both ways pick the same set under the shared tie contract (exact
+    while fewer than ``_TIE_OVERSAMPLE`` segments tie at the boundary).
+    """
+    q, n_segs = seg_m.shape
+    if (sup is not None and n_segs >= _TWO_LEVEL_MIN_SEGS
+            and n_segs % sup == 0 and n_segs // sup >= kk):
+        s3 = seg_m.reshape(q, n_segs // sup, sup)
+        sup_idx = torch.topk(s3.amax(dim=2), kk, dim=1, sorted=False).indices
+        vals = gather_supers(s3, sup_idx)                       # [Q, kk*sup]
+        j = torch.topk(vals, kk, dim=1, sorted=False).indices
+        return torch.gather(sup_idx, 1, j // sup) * sup + j % sup
+    return torch.topk(seg_m, kk, dim=1, sorted=False).indices
+
+
 def dense_topk_matmul(
     queries: torch.Tensor, docs: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -121,6 +165,7 @@ def dense_topk_twophase_rm(
     n_valid: Optional[int] = None,
     seg_rows: int = TWOPHASE_SEG_ROWS,
     doc_scales: Optional[torch.Tensor] = None,   # [N] f32, int8 docs only
+    sup: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Large-N exact top-k: K1 segment maxima, then an exact refine.
 
@@ -135,6 +180,10 @@ def dense_topk_twophase_rm(
     int32 segment maxima, which the segment scales dequantize (the
     shared scale commutes with the max), and the refine scores
     ``acc * q_scale * seg_scale`` in that order, as the JAX package does.
+
+    ``sup``: phase 2's segment select (:func:`select_segments`); None,
+    the served path, takes one flat top-k, an int the JAX package's
+    two-level select over super-segments of ``sup`` segments.
     """
     q, d = queries.shape
     n, d2 = docs.shape
@@ -164,7 +213,7 @@ def dense_topk_twophase_rm(
     # phase 2: the best segments, their members gathered as one
     # contiguous seg_rows*D row each, rescored exactly in fp32
     kk = min(k + _TIE_OVERSAMPLE, n_segs)
-    seg_pos = torch.topk(seg_m, kk, dim=1, sorted=False).indices   # [Q, kk]
+    seg_pos = select_segments(seg_m, kk, sup)                  # [Q, kk]
     member = torch.arange(seg_rows, device=docs.device)
     cand = (seg_pos[:, :, None] * seg_rows + member).reshape(q, kk * seg_rows)
     gathered = docs.view(n_segs, seg_rows * d)[seg_pos]

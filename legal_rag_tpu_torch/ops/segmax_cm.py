@@ -32,7 +32,7 @@ import torch
 from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
 
 LANES = 128                           # the stride of a segment's docs
-SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16)
+SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16, 32)
 MAX_DIM = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = float(torch.finfo(torch.float32).min)

@@ -1,1 +1,1 @@
-"""Benchmarks of the port, run on a CUDA card."""
+"""Benchmarks and timing experiments of the port, run on a CUDA card."""

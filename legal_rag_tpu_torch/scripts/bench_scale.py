@@ -30,6 +30,7 @@ import torch
 from legal_rag_tpu_torch.ops.dense import (
     dense_topk_matmul, dense_topk_twophase, dense_topk_twophase_rm,
 )
+from legal_rag_tpu_torch.utils.timing import time_ms
 
 DEFAULT_SIZES = (262144, 524288, 1048576)
 D, Q, K = 384, 64, 10
@@ -46,22 +47,6 @@ def recall(ids: torch.Tensor, ref_ids: torch.Tensor) -> float:
     hits = sum(len(set(a) & set(b))
                for a, b in zip(ids.tolist(), ref_ids.tolist()))
     return hits / ref_ids.numel()
-
-
-def time_ms(fn: Callable[[], object], iters: int = 20,
-            warmup: int = 3) -> float:
-    """Mean ms per call over ``iters`` calls by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def make_data(n_max: int, device, seed: int = 0):

@@ -12,7 +12,7 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Callable, Dict
 
 
 class StageTimer:
@@ -78,3 +78,23 @@ def device_trace(log_dir: str):
     handler = torch.profiler.tensorboard_trace_handler(log_dir)
     with torch.profiler.profile(activities=acts, on_trace_ready=handler):
         yield
+
+
+def time_ms(fn: Callable[[], object], iters: int = 20,
+            warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls after ``warmup``,
+    by CUDA events on the current stream (the card's clock, not the
+    host's: launches return before the device finishes)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
