@@ -10,11 +10,20 @@
 //
 // One block per row: a strided scan per thread, then a butterfly over
 // the warp's lanes and a pass over the block's warps in shared memory.
+//
+// What bounds it: at [8, 256] the device work is a few microseconds and
+// the bytes take nanoseconds, so a call costs what the host pays to
+// launch it. The entry point therefore does no per-call setup: it makes
+// the device current only when it is not (setup.cuh), and its wrapper
+// takes CudaKernel's lean path (the library and its ctypes signatures
+// loaded once, the raw stream handle, a plain launch count).
 
 #include <cfloat>
 #include <climits>
 
 #include <cuda_runtime.h>
+
+#include "setup.cuh"
 
 namespace {
 
@@ -62,7 +71,7 @@ argmax_rows_kernel(const float* __restrict__ x, int n_cols,
 extern "C" int argmax_probe_launch(const void* x, int n_rows, int n_cols,
                                    void* out, int device, void* stream) {
   if (n_rows < 1 || n_cols < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = setup::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   argmax_rows_kernel<<<n_rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), n_cols, static_cast<int*>(out));

@@ -40,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "setup.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;   // 4 warps
@@ -267,14 +269,16 @@ extern "C" int mm_rowmax_launch(const void* queries, int n_q, int d,
       n_pad % block_n != 0 || grid_x < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = setup::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(kM) * (d + 8) * 2 +
                       static_cast<size_t>(kStages) * kK * kBPitch * 2 +
                       static_cast<size_t>(kThreads / 32) * kM * sizeof(float);
-  err = cudaFuncSetAttribute(mm_rowmax_tiles_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  if (smem > static_cast<size_t>(setup::kMaxSmemBytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = setup::allow_max_smem(mm_rowmax_tiles_kernel, device, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_tiles = n_pad / kN;

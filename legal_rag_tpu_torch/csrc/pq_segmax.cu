@@ -32,6 +32,8 @@
 
 #include <cuda_runtime.h>
 
+#include "setup.cuh"
+
 namespace {
 
 constexpr int kSegRows = 8;       // rows per segment (adjacent threads)
@@ -109,19 +111,17 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
 
 template <int M>
 cudaError_t launch(const void* codes, const void* lut, float* out,
-                   long long n_rows, int n_q, cudaStream_t stream) {
+                   long long n_rows, int n_q, int device,
+                   cudaStream_t stream) {
+  static std::atomic<unsigned long long> ready{0};
   auto kernel = pq_segmax_kernel<M>;
   const int q_tile = n_q < kMaxQTile ? n_q : kMaxQTile;
   const size_t smem = static_cast<size_t>(q_tile) * 2 * M * 16 *
                       sizeof(unsigned short);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = setup::allow_max_smem(kernel, device, ready);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = setup::sm_count(device, &sms)) != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
@@ -151,14 +151,14 @@ extern "C" int pq_segmax_launch(const void* codes, const void* lut,
                                 float* out, long long n_rows, int m,
                                 int n_q, int device, void* stream) {
   if (n_rows < 1 || n_q < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = setup::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 8: err = launch<8>(codes, lut, out, n_rows, n_q, s); break;
-    case 16: err = launch<16>(codes, lut, out, n_rows, n_q, s); break;
-    case 32: err = launch<32>(codes, lut, out, n_rows, n_q, s); break;
-    case 48: err = launch<48>(codes, lut, out, n_rows, n_q, s); break;
+    case 8: err = launch<8>(codes, lut, out, n_rows, n_q, device, s); break;
+    case 16: err = launch<16>(codes, lut, out, n_rows, n_q, device, s); break;
+    case 32: err = launch<32>(codes, lut, out, n_rows, n_q, device, s); break;
+    case 48: err = launch<48>(codes, lut, out, n_rows, n_q, device, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

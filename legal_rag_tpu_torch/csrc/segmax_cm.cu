@@ -36,6 +36,7 @@
 #include <cuda_runtime.h>
 
 #include "colmajor.cuh"
+#include "setup.cuh"
 
 namespace {
 
@@ -82,11 +83,11 @@ segmax_cm_kernel(const T* __restrict__ docs_t, long long ld,
 template <typename T, int QT>
 cudaError_t launch(const void* docs_t, long long ld, const void* queries,
                    int n_q, int d, void* out, long long n_segs, int seg_rows,
-                   long long limit, cudaStream_t stream) {
+                   long long limit, int device, cudaStream_t stream) {
+  static std::atomic<unsigned long long> ready{0};
   const size_t smem = static_cast<size_t>(QT) * ((d + 3) & ~3) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      segmax_cm_kernel<T, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err =
+      setup::allow_max_smem(segmax_cm_kernel<T, QT>, device, ready);
   if (err != cudaSuccess) return err;
   const int n_qt = (n_q + QT - 1) / QT;
   const long long blocks = (n_segs + kThreads - 1) / kThreads * n_qt;
@@ -101,13 +102,14 @@ cudaError_t launch(const void* docs_t, long long ld, const void* queries,
 template <typename T>
 cudaError_t dispatch(const void* docs_t, long long ld, const void* queries,
                      int n_q, int d, void* out, long long n_segs,
-                     int seg_rows, long long limit, cudaStream_t stream) {
+                     int seg_rows, long long limit, int device,
+                     cudaStream_t stream) {
   if (n_q <= 8) {
     return launch<T, 8>(docs_t, ld, queries, n_q, d, out, n_segs, seg_rows,
-                        limit, stream);
+                        limit, device, stream);
   }
   return launch<T, 16>(docs_t, ld, queries, n_q, d, out, n_segs, seg_rows,
-                       limit, stream);
+                       limit, device, stream);
 }
 
 }  // namespace
@@ -127,15 +129,15 @@ extern "C" int segmax_cm_launch(const void* docs_t, long long ld,
       n_segs % kLanes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = setup::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     err = dispatch<float>(docs_t, ld, queries, n_q, d, out, n_segs, seg_rows,
-                          limit, s);
+                          limit, device, s);
   } else if (dtype == 1) {
     err = dispatch<__nv_bfloat16>(docs_t, ld, queries, n_q, d, out, n_segs,
-                                  seg_rows, limit, s);
+                                  seg_rows, limit, device, s);
   } else {
     err = cudaErrorInvalidValue;
   }

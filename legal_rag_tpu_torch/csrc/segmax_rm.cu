@@ -51,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "setup.cuh"
+
 namespace {
 
 constexpr int kSegRows = 8;       // rows per segment
@@ -332,19 +334,16 @@ segmax_rm_i8_kernel(const int8_t* __restrict__ docs,
 template <typename In, typename Out>
 cudaError_t launch_persistent(
     void (*kernel)(const In*, const In*, Out*, long long, int, long long),
-    size_t smem_per_query, const void* docs, const void* queries, void* out,
-    long long n_rows, int n_q, long long n_valid, cudaStream_t stream) {
+    std::atomic<unsigned long long>& ready, size_t smem_per_query,
+    const void* docs, const void* queries, void* out, long long n_rows,
+    int n_q, long long n_valid, int device, cudaStream_t stream) {
   const long long n_segs = n_rows / kSegRows;
   const int q_tile = n_q < kMaxQTile ? n_q : kMaxQTile;
   const size_t smem = static_cast<size_t>(q_tile) * smem_per_query;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = setup::allow_max_smem(kernel, device, ready);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = setup::sm_count(device, &sms)) != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
@@ -362,30 +361,31 @@ cudaError_t launch_persistent(
 
 template <typename T, int D>
 cudaError_t launch(const void* docs, const void* queries, void* out,
-                   long long n_rows, int n_q, long long n_valid,
+                   long long n_rows, int n_q, long long n_valid, int device,
                    cudaStream_t stream) {
+  static std::atomic<unsigned long long> ready{0};
   if constexpr (std::is_same<T, int8_t>::value) {
     // the query tile stays int8 in shared memory: D bytes a query
     return launch_persistent<int8_t, int>(
-        segmax_rm_i8_kernel<D>, D, docs, queries, out, n_rows, n_q,
-        n_valid, stream);
+        segmax_rm_i8_kernel<D>, ready, D, docs, queries, out, n_rows, n_q,
+        n_valid, device, stream);
   } else {
     return launch_persistent<T, float>(
-        segmax_rm_kernel<T, D>, D * sizeof(float), docs, queries, out,
-        n_rows, n_q, n_valid, stream);
+        segmax_rm_kernel<T, D>, ready, D * sizeof(float), docs, queries,
+        out, n_rows, n_q, n_valid, device, stream);
   }
 }
 
 template <typename T>
 cudaError_t dispatch_dim(const void* docs, const void* queries, void* out,
                          long long n_rows, int d, int n_q, long long n_valid,
-                         cudaStream_t stream) {
+                         int dev, cudaStream_t stream) {
   switch (d) {
-    case 128: return launch<T, 128>(docs, queries, out, n_rows, n_q, n_valid, stream);
-    case 256: return launch<T, 256>(docs, queries, out, n_rows, n_q, n_valid, stream);
-    case 384: return launch<T, 384>(docs, queries, out, n_rows, n_q, n_valid, stream);
-    case 512: return launch<T, 512>(docs, queries, out, n_rows, n_q, n_valid, stream);
-    case 768: return launch<T, 768>(docs, queries, out, n_rows, n_q, n_valid, stream);
+    case 128: return launch<T, 128>(docs, queries, out, n_rows, n_q, n_valid, dev, stream);
+    case 256: return launch<T, 256>(docs, queries, out, n_rows, n_q, n_valid, dev, stream);
+    case 384: return launch<T, 384>(docs, queries, out, n_rows, n_q, n_valid, dev, stream);
+    case 512: return launch<T, 512>(docs, queries, out, n_rows, n_q, n_valid, dev, stream);
+    case 768: return launch<T, 768>(docs, queries, out, n_rows, n_q, n_valid, dev, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -404,16 +404,18 @@ extern "C" int segmax_rm_launch(const void* docs, const void* queries,
   if (n_rows % kSegRows != 0 || n_q < 1 || n_rows < kSegRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = setup::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = dispatch_dim<float>(docs, queries, out, n_rows, d, n_q, n_valid, s);
+    err = dispatch_dim<float>(docs, queries, out, n_rows, d, n_q, n_valid,
+                              device, s);
   } else if (dtype == 1) {
     err = dispatch_dim<__nv_bfloat16>(docs, queries, out, n_rows, d, n_q,
-                                      n_valid, s);
+                                      n_valid, device, s);
   } else if (dtype == 2) {
-    err = dispatch_dim<int8_t>(docs, queries, out, n_rows, d, n_q, n_valid, s);
+    err = dispatch_dim<int8_t>(docs, queries, out, n_rows, d, n_q, n_valid,
+                               device, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -24,6 +24,8 @@
 
 #include <cuda_runtime.h>
 
+#include "setup.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -114,7 +116,7 @@ extern "C" int stream_probe_launch(const void* docs_t, long long ld, int d,
       n_pad / block_n > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = setup::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = static_cast<int>(n_pad / block_n);

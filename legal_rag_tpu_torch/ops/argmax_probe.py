@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
+from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 TIE_COLUMNS = (33, 200)
 
@@ -46,19 +46,20 @@ def row_argmax_reference(x: torch.Tensor) -> torch.Tensor:
 
 def row_argmax(x: torch.Tensor) -> torch.Tensor:
     """``[R]`` int32: each row's (max, lowest index) column."""
-    if x.device.type == "cpu":
-        return row_argmax_reference(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return row_argmax_reference(x)
         raise ValueError(f"row_argmax: x on {x.device}; need a CUDA tensor")
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("row_argmax: x must be 2-D contiguous float32")
-    if x.shape[0] == 0 or x.shape[1] == 0:
+    rows, cols = x.shape
+    if rows == 0 or cols == 0:
         raise ValueError(f"row_argmax: empty input {tuple(x.shape)}")
-    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
-    lib = P.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.argmax_probe_launch(x.data_ptr(), x.shape[0], x.shape[1],
-                                  out.data_ptr(), x.device.index or 0, stream)
+    dev = x.get_device()
+    out = torch.empty(rows, dtype=torch.int32, device=x.device)
+    err = P.library().argmax_probe_launch(x.data_ptr(), rows, cols,
+                                          out.data_ptr(), dev,
+                                          current_stream(dev))
     if err != 0:
         raise RuntimeError(f"argmax probe launch failed: CUDA error {err}")
     P.count_launch()

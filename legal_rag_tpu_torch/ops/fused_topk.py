@@ -8,33 +8,47 @@ the tail holds masked ids in ascending order, as the TPU kernel returns
 them. ``k > N`` raises. It replaces the TPU kernel
 ``legal_rag_tpu/ops/dense.py _fused_topk_kernel``.
 
-Scores are fp32 sums over ``e = 0 .. D-1`` in that order, each product
-rounded to fp32 before it is added (bf16 widens exactly). The kernel and
-:func:`fused_topk_reference` perform the same roundings, so their scores
-agree bit for bit and their ids exactly, ties included.
-
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``legal_rag_tpu_torch/csrc/fused_topk.cu`` (a partial top-k per doc
+``legal_rag_tpu_torch/csrc/fused_topk.cu`` (scores on the tensor cores
+by ``mma.sync``: bf16 directly, fp32 as 3xTF32; a partial top-k per doc
 split, then a merge; built with nvcc on first use, loaded with ctypes)
 and raises on anything the kernel does not take, ``k > MAX_K``
 included. On CPU tensors it runs :func:`fused_topk_reference`, the plain
 PyTorch version of the same function; nothing else ever takes that path.
+
+Numerics: the plain version sums fp32 products over ``e = 0 .. D-1`` in
+that order, each product rounded before it is added (bf16 widens
+exactly). The kernel's tensor cores sum in their own order, so the two
+agree within ``1e-5`` on unit vectors at D = 384, not bit for bit, and
+their ids agree under the tie-aware rule (a doc may trade places with
+one whose score is within that band). Identical doc columns score
+identically on both and tie by lowest id.
+
+:func:`launch_plan` derives the kernel's query tile, buffer size and
+split count from the dtype, D, k, N, Q and the card's SM count, so that
+the block's shared memory stays within 227 KB.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
+from legal_rag_tpu_torch.utils.cuda_build import (
+    CudaKernel, current_stream, sm_count,
+)
 
-MAX_K = 256                  # buffer slots (512) less one tile (256) a query
+MAX_K = 256
 MAX_DIM = 1024
-_QUERY_TILE = 8              # queries per partial block
-_TILE = 256                  # columns a partial block scores at a time
-_BLOCKS_PER_SM = 4           # partial blocks in flight per SM (44 KB each)
+MAX_SMEM = 232_448           # dynamic shared memory a block can take
+SM_SMEM = 233_472            # an SM's shared memory, 1 KB a block reserved
+_TILE = 128                  # columns a partial block scores at a time
+_DEPTH = 32                  # rows of docs_t a staged chunk holds
+_RING = {torch.float32: (4, _TILE + 4), torch.bfloat16: (6, _TILE + 8)}
+_BLOCKS_PER_SM = 2           # most 128-thread partial blocks an SM holds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = float(torch.finfo(torch.float32).min)
 
@@ -42,11 +56,30 @@ K3 = CudaKernel("fused_topk", "fused_topk.cu", {
     "fused_topk_launch": [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
+    "fused_topk_smem_bytes": [ctypes.c_int] * 4,
 })
+
+
+def fused_scores_reference(
+    queries: torch.Tensor,      # [Q, D]
+    docs_t: torch.Tensor,       # [D, N]
+    n_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """``[Q, N]`` fp32 scores of the plain version: sums over ``D`` in
+    order (one rounded product and one rounded add per step), masked
+    columns set to the finite fp32 minimum."""
+    n = docs_t.shape[1]
+    limit = n if n_valid is None else max(0, min(n, int(n_valid)))
+    q = queries.float()
+    scores = torch.zeros((q.shape[0], n), device=docs_t.device)
+    for e in range(docs_t.shape[0]):
+        scores.add_(q[:, e:e + 1] * docs_t[e].float())
+    scores[:, limit:] = _NEG
+    return scores
 
 
 def fused_topk_reference(
@@ -55,27 +88,63 @@ def fused_topk_reference(
     k: int,
     n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K3: the ``[Q, N]`` fp32 scores summed over ``D`` in
-    order (one rounded product and one rounded add per step, the
-    kernel's arithmetic), masked columns set to the finite fp32 minimum,
-    and a stable descending sort, whose ties keep ascending ids."""
-    n = docs_t.shape[1]
-    limit = n if n_valid is None else max(0, min(n, int(n_valid)))
-    q = queries.float()
-    scores = torch.zeros((q.shape[0], n), device=docs_t.device)
-    for e in range(docs_t.shape[0]):
-        scores.add_(q[:, e:e + 1] * docs_t[e].float())
-    scores[:, limit:] = _NEG
+    """Plain PyTorch K3: :func:`fused_scores_reference` and a stable
+    descending sort, whose ties keep ascending ids."""
+    scores = fused_scores_reference(queries, docs_t, n_valid)
     vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), ids[:, :k].int()
 
 
-def _splits(n: int, n_q: int, device: torch.device) -> int:
-    """Doc splits per query tile: enough partial blocks to fill the card
-    once, and no split narrower than one tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_qt = -(-n_q // _QUERY_TILE)
-    return max(1, min(-(-n // _TILE), -(-_BLOCKS_PER_SM * sms // n_qt)))
+class Plan(NamedTuple):
+    query_tile: int     # queries a partial block holds: 16, 32 or 64
+    cap: int            # candidate slots a query in a partial block
+    n_splits: int       # partial blocks along the docs per query tile
+    smem: int           # a partial block's dynamic shared memory, bytes
+
+
+def capacity(k: int) -> int:
+    """Candidate slots a query: the smallest power of two >= k + 32, so
+    that a compaction always frees room for a warp's offers and the
+    buffer sorts in place."""
+    cap = 64
+    while cap < k + 32:
+        cap *= 2
+    return cap
+
+
+def smem_bytes(dtype: torch.dtype, d: int, query_tile: int, cap: int) -> int:
+    """The partial block's shared memory: the doc ring, the query tile
+    (rows of D rounded up to 32, plus 8) and the candidate buffers (rows
+    of cap + 1 slots, and four words a row);
+    ``fused_topk.cu partial_smem`` computes the same."""
+    stages, pitch = _RING[dtype]
+    elt = 4 if dtype == torch.float32 else 2
+    dp = -(-d // _DEPTH) * _DEPTH
+    return (stages * _DEPTH * pitch * elt + query_tile * (dp + 8) * elt
+            + query_tile * (cap + 1) * 8 + query_tile * 16)
+
+
+@functools.lru_cache(maxsize=512)
+def launch_plan(dtype: torch.dtype, d: int, k: int, n: int, n_q: int,
+                sms: int) -> Plan:
+    """The smallest query tile that holds Q, halved while the block's
+    shared memory would pass MAX_SMEM, and halved again while too few
+    (tile, query tile) blocks exist to give every SM one; then enough
+    doc splits for every SM to hold as many blocks as fit (one of 256
+    threads at 32 and 64 queries, two of 128 at 16), no split narrower
+    than a tile."""
+    cap = capacity(k)
+    tiles = -(-n // _TILE)
+    qt = 16 if n_q <= 16 else 32 if n_q <= 32 else 64
+    while qt > 16 and (smem_bytes(dtype, d, qt, cap) > MAX_SMEM
+                       or tiles * -(-n_q // qt) < sms):
+        qt //= 2
+    smem = smem_bytes(dtype, d, qt, cap)
+    per_sm = max(1, min(_BLOCKS_PER_SM if qt == 16 else 1,
+                        SM_SMEM // (smem + 1024)))
+    n_qt = -(-n_q // qt)
+    n_splits = max(1, min(tiles, -(-per_sm * sms // n_qt)))
+    return Plan(qt, cap, n_splits, smem)
 
 
 def fused_topk(
@@ -89,9 +158,11 @@ def fused_topk(
     n = docs_t.shape[1]
     if not 0 < k <= n:
         raise ValueError(f"fused_topk: need 0 < k <= N (k={k}, N={n})")
-    if docs_t.device.type == "cpu" and queries.device.type == "cpu":
-        return fused_topk_reference(queries, docs_t, k, n_valid)
-    if docs_t.device.type != "cuda" or queries.device != docs_t.device:
+    if not (docs_t.is_cuda and queries.is_cuda):
+        if docs_t.device.type == "cpu" and queries.device.type == "cpu":
+            return fused_topk_reference(queries, docs_t, k, n_valid)
+    dev = docs_t.get_device()
+    if not docs_t.is_cuda or queries.get_device() != dev:
         raise ValueError(
             f"fused_topk: docs_t on {docs_t.device}, queries on "
             f"{queries.device}; both must be on one CUDA device"
@@ -102,9 +173,10 @@ def fused_topk(
     q = queries.shape[0]
     if queries.shape[1] != d:
         raise ValueError(f"fused_topk: dim mismatch {queries.shape[1]} vs {d}")
-    if docs_t.dtype not in _DTYPE_CODES or queries.dtype != docs_t.dtype:
+    dtype = docs_t.dtype
+    if dtype not in _DTYPE_CODES or queries.dtype != dtype:
         raise ValueError(
-            f"fused_topk: docs_t {docs_t.dtype} / queries {queries.dtype}; "
+            f"fused_topk: docs_t {dtype} / queries {queries.dtype}; "
             "both float32 or both bfloat16"
         )
     if k > MAX_K:
@@ -114,24 +186,27 @@ def fused_topk(
             f"fused_topk: need 0 < D <= {MAX_DIM}, Q > 0 and N < 2**31 "
             f"(got D={d}, Q={q}, N={n})"
         )
-    if docs_t.stride(1) != 1 or docs_t.stride(0) < n:
+    ld = docs_t.stride(0)
+    if docs_t.stride(1) != 1 or ld < n:
         raise ValueError("fused_topk: docs_t rows must be contiguous")
     if not queries.is_contiguous():
         raise ValueError("fused_topk: queries must be contiguous")
-    dev = docs_t.device
-    n_splits = _splits(n, q, dev)
-    part_s = torch.empty((q, n_splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((q, n_splits, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    plan = launch_plan(dtype, d, k, n, q, sm_count(dev))
+    device = docs_t.device
+    # one allocation for the scratch (scores, then ids) and one for both
+    # outputs (the scores' bits, then the ids)
+    part = torch.empty((2, q, plan.n_splits, k), dtype=torch.int32,
+                       device=device)
+    out = torch.empty((2, q, k), dtype=torch.int32, device=device)
+    out_s, out_i = out[0].view(torch.float32), out[1]
     limit = n if n_valid is None else max(0, min(n, int(n_valid)))
-    lib = K3.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fused_topk_launch(
-        docs_t.data_ptr(), docs_t.stride(0), n, queries.data_ptr(), q, d, k,
-        limit, n_splits, part_s.data_ptr(), part_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), _DTYPE_CODES[docs_t.dtype],
-        dev.index or 0, stream,
+    part_s = part.data_ptr()
+    out_p = out.data_ptr()
+    err = K3.library().fused_topk_launch(
+        docs_t.data_ptr(), ld, n, queries.data_ptr(), q, d, k, limit,
+        plan.query_tile, plan.cap, plan.n_splits,
+        part_s, part_s + q * plan.n_splits * k * 4, out_p, out_p + q * k * 4,
+        _DTYPE_CODES[dtype], dev, current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {err}")

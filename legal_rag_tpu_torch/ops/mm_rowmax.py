@@ -21,7 +21,9 @@ import ctypes
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
+from legal_rag_tpu_torch.utils.cuda_build import (
+    CudaKernel, current_stream, sm_count,
+)
 
 TILE_N = 128          # columns a kernel tile; block_n is a multiple of it
 DEPTH = 32            # D is a multiple of the kernel's k-chunk
@@ -90,12 +92,12 @@ def mm_rowmax(
         raise ValueError("mm_rowmax: tensors must be 16-byte aligned")
     dev = docs_t.device
     n_tiles = n_pad // TILE_N
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = sm_count(dev.index or 0)
     grid_x = min(n_tiles, _BLOCKS_PER_SM * sms)
     partial = torch.empty((q, n_tiles), dtype=torch.float32, device=dev)
     out = torch.empty((q, nb), dtype=torch.float32, device=dev)
     lib = X2.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = current_stream(dev.index or 0)
     err = lib.mm_rowmax_launch(
         queries.data_ptr(), q, d, docs_t.data_ptr(), docs_t.stride(0), n_pad,
         block_n, grid_x, partial.data_ptr(), out.data_ptr(), dev.index or 0,

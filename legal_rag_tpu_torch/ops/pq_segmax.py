@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
+from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 SEG_ROWS = 8                          # the kernel's segment: 8 threads
 SUPPORTED_M = (8, 16, 32, 48)         # packed bytes per doc
@@ -109,7 +109,7 @@ def pq_segmax(
     out = torch.empty((q, -(-n // seg_rows)), dtype=torch.float32,
                       device=codes.device)
     lib = K2.library()
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    stream = current_stream(codes.device.index or 0)
     err = lib.pq_segmax_launch(
         codes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, m, q,
         codes.device.index or 0, stream,

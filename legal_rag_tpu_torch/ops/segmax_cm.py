@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
+from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 LANES = 128                           # the stride of a segment's docs
 SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16, 32)
@@ -119,7 +119,7 @@ def segmax_cm(
     n_segs = n_segments(n, seg_rows)
     out = torch.empty((q, n_segs), dtype=torch.float32, device=docs_t.device)
     lib = K4.library()
-    stream = torch.cuda.current_stream(docs_t.device).cuda_stream
+    stream = current_stream(docs_t.device.index or 0)
     err = lib.segmax_cm_launch(
         docs_t.data_ptr(), docs_t.stride(0), queries.data_ptr(), q, d,
         out.data_ptr(), n_segs, seg_rows, max(0, min(int(n_valid), n)),

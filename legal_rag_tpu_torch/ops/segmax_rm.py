@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
+from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 SEG_ROWS = 8                          # the kernel's warp layout: 8 rows
 SUPPORTED_DIMS = (128, 256, 384, 512, 768)
@@ -75,11 +75,10 @@ class SegmaxKernel(CudaKernel):
         self.int8_launches = 0
 
     def count_launch(self, int8: bool = False) -> None:
-        with self._lock:
-            if int8:
-                self.int8_launches += 1
-            else:
-                self.launches += 1
+        if int8:
+            self.int8_launches += 1
+        else:
+            self.launches += 1
 
 
 K1 = SegmaxKernel()
@@ -129,7 +128,7 @@ def segmax_rm(
                       dtype=torch.int32 if is_int8 else torch.float32,
                       device=docs.device)
     lib = K1.library()
-    stream = torch.cuda.current_stream(docs.device).cuda_stream
+    stream = current_stream(docs.device.index or 0)
     err = lib.segmax_rm_launch(
         docs.data_ptr(), queries.data_ptr(), out.data_ptr(), n, d, q,
         max(0, min(int(n_valid), n)), _DTYPE_CODES[docs.dtype],

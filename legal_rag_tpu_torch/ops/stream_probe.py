@@ -24,7 +24,9 @@ from typing import Tuple
 
 import torch
 
-from legal_rag_tpu_torch.utils.cuda_build import CudaKernel
+from legal_rag_tpu_torch.utils.cuda_build import (
+    CudaKernel, current_stream, sm_count,
+)
 
 _WAVES = 16       # partial blocks per SM that the splits aim at (8 resident)
 
@@ -77,13 +79,13 @@ def stream_probe(
         raise ValueError("stream_probe: docs_t must be contiguous and "
                          "16-byte aligned")
     dev = docs_t.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = sm_count(dev.index or 0)
     splits = max(1, min(d, -(-_WAVES * sms // nb)))
     partial = torch.empty(nb * splits, dtype=torch.float32, device=dev)
     block_max = torch.empty(nb, dtype=torch.float32, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
     lib = X1.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = current_stream(dev.index or 0)
     err = lib.stream_probe_launch(
         docs_t.data_ptr(), docs_t.stride(0), d, docs_t.shape[1], block_n,
         splits, partial.data_ptr(), block_max.data_ptr(), total.data_ptr(),

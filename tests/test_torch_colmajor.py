@@ -212,6 +212,45 @@ def test_fused_non_cpu_tensors_never_reach_the_plain_version():
         k3.fused_topk(q, d, 10)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_launch_plan_fits_every_shape(dtype):
+    """For every k in 1..256 and Q in 1..512 (D = 384 and 1024, a small
+    and a 1M corpus): a valid query tile, buffer and split count, and a
+    block's shared memory within the card's 232,448 bytes."""
+    plan = k3.launch_plan.__wrapped__
+    for d in (384, 1024):
+        for n in (300, 1_007_616):
+            tiles = -(-n // 128)
+            for k in range(1, k3.MAX_K + 1):
+                cap = k3.capacity(k)
+                assert cap & (cap - 1) == 0 and k + 32 <= cap <= 512
+                for n_q in range(1, 513):
+                    p = plan(dtype, d, k, n, n_q, 132)
+                    assert p.query_tile in (16, 32, 64)
+                    assert p.query_tile >= min(n_q, 16)
+                    assert -(-n_q // p.query_tile) <= 65535
+                    assert p.cap == cap
+                    assert 1 <= p.n_splits <= tiles
+                    assert p.smem == k3.smem_bytes(dtype, d, p.query_tile, cap)
+                    assert p.smem <= k3.MAX_SMEM == 232_448
+
+
+@pytest.mark.parametrize("n_q,k", [(64, 10), (64, 256)])
+def test_fused_reference_matches_jax_at_wide_q_and_k(n_q, k):
+    """K3's plain version against dense_topk_pallas at the kernel's
+    widest query tile and largest k."""
+    rng = np.random.default_rng(n_q + k)
+    docs = _unit(rng, 700, 64)
+    docs[650] = docs[3]                 # a duplicate across JAX's blocks
+    queries = _unit(rng, n_q, 64)
+    queries[0] = docs[3]
+    ref = jdense.dense_topk_pallas(jnp.asarray(queries), jnp.asarray(docs.T),
+                                   k, block_n=256, interpret=True)
+    got = k3.fused_topk_reference(_t(queries), _t(docs.T), k)
+    assert_same(queries, docs, k, got, ref)
+    assert got[1][0][:2].tolist() == [3, 650]
+
+
 # -- K4: dense_topk_twophase against JAX's dense_topk_twophase ---------
 
 
@@ -404,23 +443,88 @@ def test_segmax_cm_kernel_matches_plain_on_gpu(cuda, dtype, seg_rows, d, n_q):
     assert k4.K4.launches == before + 2
 
 
+def assert_topk_tie_aware(scores, k, got_s, got_i, tol=TOL):
+    """K3's ``(got_s, got_i)`` against the plain version's fp32 scores
+    ``[Q, N]`` (masked columns at finfo.min): values rank by rank and
+    each id's own score within ``tol``, descending, ids distinct, every
+    column clearly above the k-th present, none clearly below it."""
+    s64 = scores.double()
+    srt = torch.topk(s64, k, dim=1).values
+    kth = srt[:, k - 1:k]
+    got_s, got_i = got_s.double(), got_i.long()
+    assert got_s.shape == got_i.shape == (scores.shape[0], k)
+    assert bool((got_i >= 0).all()) and bool((got_i < scores.shape[1]).all())
+    got_true = torch.gather(s64, 1, got_i)
+    assert float((got_s - srt).abs().max()) <= tol
+    assert float((got_s - got_true).abs().max()) <= tol
+    assert bool((got_s[:, 1:] - got_s[:, :-1] <= tol).all())
+    assert bool((got_true >= kth - tol).all())
+    for qi in range(scores.shape[0]):
+        row = got_i[qi].tolist()
+        assert len(set(row)) == k
+        must = torch.nonzero(s64[qi] > kth[qi] + tol).flatten().tolist()
+        assert set(must) <= set(row)
+
+
+_GPU_N = 65_536 + 37
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,n_q,k,n_valid", [
-    (2620, 8, 10, None), (2620, 3, 256, None), (65_536, 19, 64, 65_000),
-    (300, 9, 12, 5), (100_003, 64, 1, None),
+@pytest.mark.parametrize("n,n_q,k,n_valid,layout", [
+    *((_GPU_N, q, k, None, "slice") for q in (1, 19, 64, 100)
+      for k in (1, 10, 64, 256)),
+    (_GPU_N, 19, 64, 65_000, "contiguous"),     # rows not 16-byte aligned
+    (_GPU_N, 100, 256, 40_000, "slice"),
+    (2620, 8, 10, None, "contiguous"),          # the serving corpus
+    (2620, 3, 256, None, "slice"),
+    (300, 9, 12, 5, "contiguous"),              # masked tail, n_valid < k
+    (300, 64, 256, 100, "slice"),
+    (100_003, 64, 1, None, "slice"),
 ])
 def test_fused_topk_kernel_matches_plain_on_gpu(cuda, dtype, n, n_q, k,
-                                                n_valid):
-    rng = np.random.default_rng(n + k)
-    docs_t = torch.from_numpy(_unit(rng, n, 384).T.copy()).to(cuda, dtype)
-    docs_t[:, n // 2:n // 2 + 40] = docs_t[:, 7:8]   # ties across splits
+                                                n_valid, layout):
+    """K3 against its plain version: scores within 1e-5 and ids equal
+    under the tie-aware rule (the tensor cores sum in another order);
+    duplicate columns across tiles and splits tie by lowest id; the
+    masked tail holds masked ids in ascending order at finfo.min."""
+    rng = np.random.default_rng(n + k + n_q)
+    cols = _unit(rng, n, 384).T
+    if layout == "slice":               # a column slice: row stride > N
+        wide = np.zeros((384, n + 91), np.float32)
+        wide[:, :n] = cols
+        docs_t = torch.from_numpy(wide).to(cuda, dtype)[:, :n]
+    else:
+        docs_t = torch.from_numpy(cols.copy()).to(cuda, dtype)
+    limit = n if n_valid is None else min(n, n_valid)
+    dups = sorted({129, 3000, n // 2, *range(n - 40, n - 1)} & set(range(limit)))
+    docs_t[:, dups] = docs_t[:, 7:8]
     q = torch.from_numpy(_unit(rng, n_q, 384)).to(cuda, dtype)
     q[0] = docs_t[:, 7]
     before = k3.K3.launches
     got_s, got_i = k3.fused_topk(q, docs_t, k, n_valid)
-    ref_s, ref_i = k3.fused_topk_reference(q, docs_t, k, n_valid)
+    scores = k3.fused_scores_reference(q, docs_t, n_valid)
     torch.cuda.synchronize()
     assert k3.K3.launches == before + 1
-    assert torch.equal(got_i, ref_i)
-    assert torch.equal(got_s, ref_s)
+    m = min(limit, k)                   # unmasked places
+    assert_topk_tie_aware(scores[:, :limit], m, got_s[:, :m], got_i[:, :m])
+    lead = [7, *dups][:m] if 7 < limit else []   # query 0: duplicates lead
+    assert got_i[0, :len(lead)].tolist() == lead
+    assert len(set(got_s[0, :len(lead)].tolist())) <= 1
+    if m < k:
+        tail = torch.arange(limit, limit + k - m, device=cuda, dtype=torch.int32)
+        assert bool((got_i[:, m:] == tail).all())
+        assert bool((got_s[:, m:] == torch.finfo(torch.float32).min).all())
+
+
+@pytest.mark.gpu
+def test_fused_topk_shared_memory_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory sum is the kernel's own."""
+    lib = k3.K3.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in (64, 102, 384, 1024):
+            for qt in (16, 32, 64):
+                for k in (1, 10, 64, 200, 256):
+                    cap = k3.capacity(k)
+                    assert lib.fused_topk_smem_bytes(code, d, qt, cap) == \
+                        k3.smem_bytes(dtype, d, qt, cap)

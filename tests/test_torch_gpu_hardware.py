@@ -39,6 +39,34 @@ def test_argmax_probe_takes_the_lowest_index(cuda):
     assert got.tolist() == [33] * 8
 
 
+def test_launch_path_counts_each_launch_and_raises_on_mixed_devices(cuda):
+    """The lean launch path shared by every wrapper: one count per
+    launch and none for a CPU tensor (its plain version), a launch on a
+    side stream lands there, and tensors on two devices raise."""
+    from legal_rag_tpu_torch.ops.argmax_probe import P, probe_input, row_argmax
+    from legal_rag_tpu_torch.ops.fused_topk import fused_topk
+
+    x = probe_input(cuda)
+    before = P.launches
+    for _ in range(5):
+        row_argmax(x)
+    assert P.launches == before + 5
+    assert row_argmax(x.cpu()).tolist() == [33] * 8
+    assert P.launches == before + 5
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = row_argmax(x)
+    side.synchronize()
+    assert got.tolist() == [33] * 8 and P.launches == before + 6
+    with pytest.raises(ValueError, match="CUDA"):
+        row_argmax(torch.empty((8, 256), device="meta"))
+    docs_t = torch.ones((16, 300), device=cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_topk(torch.ones((2, 16)), docs_t, 5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_topk(torch.ones((2, 16), device=cuda), docs_t.cpu(), 5)
+
+
 def test_fused_kernel_tie_break_on_hardware(cuda):
     """Duplicate docs order by ascending id through K3."""
     from legal_rag_tpu_torch.ops.dense import dense_topk_fused
