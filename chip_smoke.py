@@ -11,25 +11,33 @@ Phases, one output line each:
    ns a call of each step over 10,000 calls, torch.argmax beside it)
    with the kernel's device time from torch.profiler;
 2. K1 against its plain PyTorch version at the main path's shapes
-   (1,000,000 docs padded to 1,007,616 rows, D=384, 8 and 64 queries,
-   fp32 and bf16, odd n_valid, duplicate rows), the whole two-phase
-   top-k against a float64 brute force, and both versions' times;
+   (1,000,000 docs padded to 1,007,616 rows, D=384, 8, 64, 67 and 128
+   queries: one request, a coalesced flush of 64 and of 64 plus a
+   victim's 4, which the engine pads to 128, and 67 for direct ops
+   callers; fp32 and bf16, odd n_valid, duplicate rows; at 64 queries
+   also seg_rows 16 and D=100), the whole two-phase top-k against a
+   float64 brute force, and both versions' times;
 2b. K1's int8 variant against its plain version on phase 2's docs
-   quantized per segment: int32 maps bit-equal, the int8 two-phase
-   top-20 equal to an int8-metric brute force, both versions' times;
+   quantized per segment (8, 64, 67 and 128 queries): int32 maps bit-equal,
+   the int8 two-phase top-20 equal to an int8-metric brute force, both
+   versions' times;
 2c. K2 against its plain version on 1,000,000 PQ codes (m=48) of a
-   clustered corpus, pq_topk's top-20 against a float64 ADC brute
-   force, and both versions' times there and on 10,000,000 codes;
+   clustered corpus (8, 64 and 128 queries), pq_topk's top-20 against a
+   float64 ADC brute
+   force, and both versions' times there and on 10,000,000 codes; the
+   same on 1,000,000 random codes at m=24 and m=96;
 2d. the PQ/IVF recovery workload of scripts/exp_ivf_recovery.py on the
    card (1,048,576 clustered docs, 64 queries, post-rescore recall@10
    at oversample 64, flat and at 512 probes);
 2e. K4 against its plain version on column-major docs (1,048,576 docs,
    D=384, 8 and 64 queries, fp32 and bf16, seg_rows 8 and 16, odd
-   n_valid, duplicate columns), dense_topk_twophase's top-20 against a
-   float64 brute force, both versions' times;
+   n_valid, duplicate columns; and 262,144 docs at D=1536, seg_rows 8
+   and 64), dense_topk_twophase's top-20 against a float64 brute force,
+   both versions' times;
 2f. K3 against its plain version (2,620, 65,536 and 1,007,616 docs, 8
-   and 64 queries, k 10 and 64, fp32 and bf16, and a masked tail with
-   n_valid < k): scores within 1e-5 and ids equal under the tie-aware
+   and 64 queries, k 10 and 64, fp32 and bf16, k=300 at 1,007,616 docs,
+   k 10 and 300 at D=1536, and a masked tail with n_valid < k): scores
+   within 1e-5 (4e-5 at D=1536) and ids equal under the tie-aware
    rule against the plain version's fp32 scores (the tensor cores sum
    in their own order), duplicate columns first by lowest id; times in
    turns (plain, kernel, kernel, plain) beside one PyTorch call of the
@@ -57,9 +65,12 @@ Phases, one output line each:
 4. the port's LegalEngine on the card behind the HTTP server: three
    POST /api/v1/query requests (victim narrative, procedural, heading)
    and one POST /api/v1/batch_search, each checked for its planted
-   doc, with K1's launch count over exactly that run;
+   doc, with K1's launch count over exactly that run; then one
+   batch_search of 64 queries (the coalescer's flush size) and one of
+   68 (run at Q=128), which K1 must serve on its tensor-core kernel;
 5. the same search_batch calls through a second engine on the CPU,
-   equal to the card's under the tie-aware rule;
+   equal to the card's under the tie-aware rule, the batches of 64 and
+   68 included;
 6. the PQ + IVF engine behind the HTTP server (the same requests and
    checks), then the int8 and the flat PQ engines through
    search_batch, with K2's and K1-int8's launch counts over those runs;
@@ -93,6 +104,11 @@ VICTIM = ("I was robbed at gunpoint just now, what is the procedure and "
 PROCEDURAL = "What is the procedure to file an FIR?"
 HEADING = "punishment for robbery"
 PRIMARY = (VICTIM, PROCEDURAL, HEADING)
+# POST /api/v1/batch_search of 64 queries (the coalescer's flush size, so
+# the served path launches K1 at Q=64) and of 68 (a flush of 64 plus a
+# victim's 4, which the engine pads to Q=128: two query tiles)
+SERVED_BATCHES = {n: tuple(f"{PRIMARY[i % 3]} (case {i})" for i in range(n))
+                  for n in (64, 68)}
 
 N_ROWS, N_VALID, DIM = 1_007_616, 1_000_000, 384
 SEG_TOL = 1e-5      # K1 vs plain: fp32 sums of 384 products of unit-vector
@@ -100,6 +116,11 @@ SEG_TOL = 1e-5      # K1 vs plain: fp32 sums of 384 products of unit-vector
 PQ_TOL = 1e-5       # K2 vs plain: fp32 sums of 96 bf16 table entries
                     # (|score| ~ 1) in another order
 PQ_M = 48
+# K1's batches: one request (the engine pads it to 8), the coalescer's
+# flush of 64, and 64 plus a victim's 4 queries, which the engine pads to
+# 128 (two query tiles); 67 as a direct ops caller may pass it
+K1_QS = (8, 64, 67, 128)
+PQ_WIDTHS = (24, 96)   # more code widths K2 takes (D=384: 8 and 2 dims a subspace)
 N_PQ, N_PQ_BIG = 1_000_000, 10_000_000
 RECOVERY_N, RECOVERY_Q, RECOVERY_OVERSAMPLE = 1 << 20, 64, 64
 RECOVERY_FLOOR = {"flat": 0.99, "ivf512": 0.94}      # the tier's recall floors
@@ -114,6 +135,12 @@ CM_TOL = 1e-5       # K4 vs plain: fp32 sums of 384 products in another order
 N_CM, N_CM_VALID = 1 << 20, 1_000_003     # K4's docs; an odd n_valid
 N_K3 = (2_620, 65_536, 1_007_616)   # the serving corpus, LARGE_N_THRESHOLD,
                                     # the 1M store's padded rows
+WIDE_D, N_WIDE = 1536, 262_144      # K3's and K4's widths past 1024
+K3_BIG_K = 300                      # past the 256 K3 took before
+# K3 and K4 vs plain at D=1536: fp32 sums of D products drift from one
+# order to another in proportion to D (1e-5 per 384 dims; 2.1e-5 read
+# at D=1536 in the GPU tests)
+WIDE_TOL = TOPK_TOL * WIDE_D / DIM
 K3_TOL = 1e-5
 X1_SUM_RTOL = 1e-6  # X1's in-order sum vs plain's: fp32 adds of the same
                     # maxima (the card's cumsum may order them otherwise)
@@ -124,7 +151,8 @@ EXPERIMENTS = ("exp_dense_roofline", "exp_twophase_stages",
                "exp_select_variants", "exp_member_topk")
 # one H100 SXM, dense peak rates from NVIDIA's H100 data sheet
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12,
+                  "int8": 1979e12}
 
 
 def check(cond: bool, what: str) -> None:
@@ -187,7 +215,7 @@ def phase_kernel(torch, seed: int):
     max_err, times = 0.0, {}
     for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         docs = docs32.to(dtype)
-        for qp in (8, 64):
+        for qp in K1_QS:
             q = torch.randn(qp, DIM, generator=g, device=dev)
             q /= q.norm(dim=1, keepdim=True)
             q[1] = docs32[123]
@@ -216,7 +244,30 @@ def phase_kernel(torch, seed: int):
                 "k1_ms": (k1a + k1b) / 2, "plain_ms": (p1 + p2) / 2,
                 "twophase_ms": two, "matmul_topk_ms": full,
             }
-        del docs
+        # the shapes the tensor-core kernel admits beyond the served
+        # one: seg_rows 16 over these docs, and D=100 (their first 100
+        # columns, renormalized), 64 queries, with the two-phase top-20
+        q = unit_queries(torch, g, 64, docs32).to(dtype)
+        narrow = docs32[:, :100] / docs32[:, :100].norm(dim=1, keepdim=True)
+        narrow = narrow.to(dtype)
+        q_narrow = (q.float()[:, :100] / q.float()[:, :100].norm(
+            dim=1, keepdim=True)).to(dtype)
+        for d_docs, d_q, seg_rows in ((docs, q, 16), (narrow, q_narrow, 8)):
+            for n_valid in (N_VALID, N_VALID + 3):
+                got = segmax_rm(d_q, d_docs, n_valid, seg_rows)
+                ref = segmax_rm_reference(d_q, d_docs, n_valid, seg_rows)
+                torch.cuda.synchronize()
+                check(got.shape == ref.shape == (64, N_ROWS // seg_rows),
+                      "K1 shape")
+                err = float((got - ref).abs().max())
+                check(err <= SEG_TOL, f"K1 {tag} D={d_docs.shape[1]} "
+                      f"seg_rows {seg_rows}: error {err}")
+                max_err = max(max_err, err)
+            s, i = dense_topk_twophase_rm(d_q, d_docs, 20, n_valid=N_VALID,
+                                          seg_rows=seg_rows)
+            assert_topk_equiv(torch, d_q.float(), d_docs.float(), N_VALID,
+                              20, s, i)
+        del docs, narrow
     return max_err, times, docs32
 
 
@@ -238,7 +289,7 @@ def phase_kernel_int8(torch, docs32, seed: int):
     check(idx.docs.shape == (N_ROWS, DIM), "int8 index shape")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     max_err, times = 0, {}
-    for qp in (8, 64):
+    for qp in K1_QS:
         q = torch.randn(qp, DIM, generator=g, device=dev)
         q /= q.norm(dim=1, keepdim=True)
         q[1] = docs32[123]
@@ -337,8 +388,9 @@ def phase_pq(torch, seed: int):
     cbs = torch.from_numpy(cb.codebooks).to(dev)
     qrot = torch.from_numpy(cb.rotate(qs)).to(dev)
     max_err, times = 0.0, {}
-    for qp in (8, 64):
-        q = qrot[:qp].contiguous()
+    for qp in (8, 64, 128):
+        # 128 queries: the recovery workload's 64 twice
+        q = qrot[torch.arange(qp, device=dev) % qrot.shape[0]].contiguous()
         lut = pq_lut(q, cbs).to(torch.bfloat16).contiguous()
         got = pq_segmax(lut, codes_1m)
         ref = pq_segmax_reference(lut, codes_1m)
@@ -373,6 +425,37 @@ def phase_pq(torch, seed: int):
                                  "plain_ms": (p1 + p2) / 2}
     del big
 
+    # -- K2 at other code widths: random codes and seeded codebooks,
+    # against the plain version and pq_topk's top-20 against float64 ADC
+    times_w = {}
+    for m in PQ_WIDTHS:
+        codes_m = torch.randint(0, 256, (N_PQ, m), generator=g, device=dev,
+                                dtype=torch.uint8)
+        cbs_m = torch.randn(2 * m, 16, DIM // (2 * m), generator=g,
+                            device=dev) * 0.1
+        for qp in (8, 64):
+            q = qrot[:qp].contiguous()
+            lut = pq_lut(q, cbs_m).to(torch.bfloat16).contiguous()
+            got = pq_segmax(lut, codes_m)
+            ref = pq_segmax_reference(lut, codes_m)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape == (qp, N_PQ // 8), "K2 shape")
+            err = float((got - ref).abs().max())
+            check(err <= PQ_TOL, f"K2 m={m} Q={qp} error {err}")
+            max_err = max(max_err, err)
+            k2 = lambda: pq_segmax(lut, codes_m)
+            plain = lambda: pq_segmax_reference(lut, codes_m)
+            p1, ka, kb, p2 = (time_ms(f) for f in (plain, k2, k2, plain))
+            times_w[(m, qp)] = {"k2_ms": (ka + kb) / 2,
+                                "plain_ms": (p1 + p2) / 2}
+        q = qrot[:8].contiguous()
+        s, i = pq_topk(q, codes_m, cbs_m, 20)
+        lut64 = torch.einsum("qmd,mcd->qmc",
+                             q.double().reshape(8, 2 * m, -1), cbs_m.double())
+        assert_topk_equiv_scores(torch, adc_scores64(torch, lut64, codes_m),
+                                 20, s, i)
+        del codes_m
+
     # -- recovery: post-rescore recall@10 at oversample 64
     k = 10
     kk = k * RECOVERY_OVERSAMPLE
@@ -393,7 +476,7 @@ def phase_pq(torch, seed: int):
         check(recall[name] >= RECOVERY_FLOOR[name],
               f"recovery {name}: recall@10 {recall[name]} < "
               f"{RECOVERY_FLOOR[name]}")
-    return max_err, times, recall, (t_data, t_train)
+    return max_err, times, recall, (t_data, t_train), times_w
 
 
 def phase_probe(torch) -> dict:
@@ -443,9 +526,17 @@ def unit_queries(torch, g, qp: int, docs32):
     return q
 
 
-def phase_k4(torch, docs32, seed: int):
+def wide_docs(torch, seed: int):
+    """``[WIDE_D, N_WIDE]`` fp32 unit columns on the card (docs_t)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    x = torch.randn(WIDE_D, N_WIDE, generator=g, device="cuda")
+    return x / x.norm(dim=0, keepdim=True)
+
+
+def phase_k4(torch, docs32, wide_t, seed: int):
     """K4 against its plain version, and dense_topk_twophase's top-20
-    against float64; returns the max error and the times."""
+    against float64 (and at D=1536 and seg_rows 64 over ``wide_t``);
+    returns the max error and the times."""
     from legal_rag_tpu_torch.utils.timing import time_ms
     from legal_rag_tpu_torch.ops.dense import dense_topk_twophase
     from legal_rag_tpu_torch.ops.segmax_cm import (
@@ -490,10 +581,28 @@ def phase_k4(torch, docs32, seed: int):
             times[(tag, qp, 8)]["twophase_ms"] = time_ms(
                 lambda: dense_topk_twophase(q, docs_t, 32))
         del docs_t
+        wide = wide_t.to(dtype)
+        for qp in (8, 64):
+            q = torch.randn(qp, WIDE_D, generator=g, device="cuda")
+            q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+            for seg_rows in (8, 64):
+                got = segmax_cm(q, wide, N_WIDE - 5, seg_rows)
+                ref = segmax_cm_reference(q, wide, N_WIDE - 5, seg_rows)
+                torch.cuda.synchronize()
+                check(got.shape == ref.shape, "K4 wide shape")
+                err = float((got - ref).abs().max())
+                check(err <= WIDE_TOL, f"K4 {tag} D={WIDE_D} Q={qp} seg_rows "
+                      f"{seg_rows}: error {err}")
+                max_err = max(max_err, err)
+        s, i = dense_topk_twophase(q, wide, 20, n_valid=N_WIDE - 5)
+        assert_topk_equiv_scores(
+            torch, q.double() @ wide[:, :N_WIDE - 5].double(), 20, s, i,
+            tol=WIDE_TOL)
+        del wide
     return max_err, times
 
 
-def phase_k3(torch, docs32, seed: int):
+def phase_k3(torch, docs32, wide_t, seed: int):
     """K3 against its plain version (scores within K3_TOL, ids equal
     under the tie-aware rule against the plain version's fp32 scores,
     duplicate columns tied to the lowest id); returns the max error, the
@@ -507,7 +616,7 @@ def phase_k3(torch, docs32, seed: int):
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     max_err, times, cases = 0.0, {}, 0
 
-    def compare(q, docs_t, k, n_valid=None, what=""):
+    def compare(q, docs_t, k, n_valid=None, what="", tol=K3_TOL):
         nonlocal max_err, cases
         got_s, got_i = fused_topk(q, docs_t, k, n_valid)
         scores = fused_scores_reference(q, docs_t, n_valid)
@@ -516,9 +625,9 @@ def phase_k3(torch, docs32, seed: int):
         limit = scores.shape[1] if n_valid is None else n_valid
         m = min(k, limit)
         assert_topk_equiv_scores(torch, scores[:, :limit].double(), m,
-                                 got_s[:, :m], got_i[:, :m], tol=K3_TOL)
+                                 got_s[:, :m], got_i[:, :m], tol=tol)
         err = float((got_s - torch.topk(scores, k, dim=1).values).abs().max())
-        check(err <= K3_TOL, f"K3 scores {what}: error {err}")
+        check(err <= tol, f"K3 scores {what}: error {err}")
         max_err = max(max_err, err)
         cases += 1
         return got_s, got_i
@@ -536,7 +645,22 @@ def phase_k3(torch, docs32, seed: int):
                         check(i[1, :len(dups)].tolist() == dups
                               and len(set(s[1, :len(dups)].tolist())) == 1,
                               f"K3 duplicate ties {tag} N={n} Q={qp} k={k}")
-                times[(tag, n, qp)] = time_shape(q, docs_t, 10)
+                times[(tag, n, qp, 10)] = time_shape(q, docs_t, 10)
+        # k past 256 at the 1M store's rows, and D=1536
+        docs_t = full[:, :N_K3[2]]
+        for qp in (8, 64):
+            q = unit_queries(torch, g, qp, docs32).to(dtype)
+            compare(q, docs_t, K3_BIG_K, what=f"{tag} k={K3_BIG_K} Q={qp}")
+            times[(tag, N_K3[2], qp, K3_BIG_K)] = time_shape(q, docs_t,
+                                                            K3_BIG_K)
+        wide = wide_t.to(dtype)
+        for qp in (8, 64):
+            q = torch.randn(qp, WIDE_D, generator=g, device="cuda")
+            q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+            for k in (10, K3_BIG_K):
+                compare(q, wide, k, what=f"{tag} D={WIDE_D} Q={qp} k={k}",
+                        tol=WIDE_TOL)
+        del wide
         # the masked tail: n_valid < k, masked ids ascending at finfo.min
         q = unit_queries(torch, g, 8, docs32).to(dtype)
         s, i = compare(q, full[:, :N_K3[0]], 64, n_valid=40,
@@ -844,7 +968,7 @@ def reset_counts() -> None:
     from legal_rag_tpu_torch.ops.segmax_rm import K1
     from legal_rag_tpu_torch.ops.stream_probe import X1
 
-    K1.launches = K1.int8_launches = K2.launches = 0
+    K1.launches = K1.int8_launches = K1.tensor_core_launches = K2.launches = 0
     K3.launches = K4.launches = P.launches = X1.launches = X2.launches = 0
 
 
@@ -858,6 +982,7 @@ def read_counts() -> dict:
     from legal_rag_tpu_torch.ops.stream_probe import X1
 
     return {"K1": K1.launches, "K1-int8": K1.int8_launches,
+            "K1 tensor cores": K1.tensor_core_launches,
             "K2": K2.launches, "K3": K3.launches, "K4": K4.launches,
             "P": P.launches, "X1": X1.launches, "X2": X2.launches}
 
@@ -886,6 +1011,7 @@ def phase_serve(store, n_docs: int, device: str, config=None,
 
     from legal_rag_tpu_torch.cli import BackgroundServer
     from legal_rag_tpu_torch.index.synthetic import planted_ids
+    from legal_rag_tpu_torch.retrieval.engine import _pad_pow2
     from legal_rag_tpu_torch.retrieval.facade import LegalEngine
 
     kw = {} if config is None else {"config": config}
@@ -918,6 +1044,17 @@ def phase_serve(store, n_docs: int, device: str, config=None,
         wall = time.time() - t0
         with urllib.request.urlopen(f"{server.url}/health", timeout=60) as r:
             health = json.loads(r.read())
+        served = {}
+        if kernel == "K1":
+            # a client's batch of 64 (one device search at Q=64) and of 68
+            # (padded to Q=128)
+            for n, queries in SERVED_BATCHES.items():
+                reset_counts()
+                rows = post(f"{server.url}/api/v1/batch_search",
+                            {"queries": list(queries), "k": 10})["results"]
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                served[n] = (rows, read_counts())
     finally:
         server.stop()
     plant = planted_ids(n_docs, len(PRIMARY))
@@ -949,10 +1086,21 @@ def phase_serve(store, n_docs: int, device: str, config=None,
     if device == "cuda":
         check(counts[kernel] >= dispatches, f"{kernel} launched "
               f"{counts[kernel]} times for {dispatches} device searches")
-    return engine, counts
+    for n, (rows, counts_n) in served.items():
+        check(len(rows) == n and all(len(r) == 10 for r in rows),
+              f"batch of {n}")
+        if device == "cuda":
+            check(counts_n["K1 tensor cores"] >= 1, f"the {n}-query batch "
+                  f"never reached K1's tensor-core kernel: {counts_n}")
+        print(f"phase {phase} ok: POST /api/v1/batch_search of {n} queries "
+              f"(k=10, run at Q={_pad_pow2(n)}) answered 200 with 10 rows "
+              f"each; K1 launched {counts_n['K1']}x "
+              f"({counts_n['K1 tensor cores']}x on the tensor cores)",
+              flush=True)
+    return engine, counts, served
 
 
-def phase_compare(store, engine, expansions):
+def phase_compare(store, engine, expansions, served=None):
     from legal_rag_tpu_torch.ops.dense import LARGE_N_THRESHOLD
     from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
 
@@ -979,6 +1127,18 @@ def phase_compare(store, engine, expansions):
             dev_rows, cpu_rows, channels, mode, w,
             cfg.fusion.candidate_multiplier * k, cfg.fusion.rrf_k,
             f"{mode} {queries[0][:24]!r}")
+    for n, (batch, _) in (served or {}).items():
+        # a served batch (HTTP rows) against the CPU engine under the
+        # same call, default weights and mode
+        from types import SimpleNamespace
+
+        check(cfg.fusion.mode == "rrf", "default fusion mode")
+        want = cpu.search_batch(list(SERVED_BATCHES[n]), k=10)
+        got = [[SimpleNamespace(doc_id=r["doc_id"], score=r["score"])
+                for r in rows] for rows in batch]
+        swaps += assert_rows_close(got, want, "rrf", None,
+                                   f"served batch of {n}")
+        calls.append((SERVED_BATCHES[n], 10, None, "rrf"))
     print(f"phase 5 ok: {len(calls)} search_batch calls on the card equal "
           f"the CPU engine's under the tie-aware rule (fused scores within "
           f"tolerance rank by rank; every doc placed as its exact dense "
@@ -1220,8 +1380,11 @@ def main() -> int:
         for (tag, qp), t in times.items()
     )
     print(f"phase 2 ok: K1 == plain within {SEG_TOL} (max abs err "
-          f"{max_err:.3g}) at N={N_ROWS}, n_valid {N_VALID} and {N_VALID + 3}; "
-          f"two-phase top-20 == float64 under the tie rule; {parts}", flush=True)
+          f"{max_err:.3g}) at N={N_ROWS}, n_valid {N_VALID} and {N_VALID + 3}, "
+          f"Q {', '.join(map(str, K1_QS))}, and at Q=64 with seg_rows 16 and "
+          f"with D=100; "
+          f"two-phase top-20 == float64 under the tie rule at each; {parts}",
+          flush=True)
 
     # -- 2b. K1-int8 against its plain version on the same docs
     err_i8, times_i8 = phase_kernel_int8(torch, docs32, args.seed)
@@ -1235,16 +1398,21 @@ def main() -> int:
               for qp, t in times_i8.items()), flush=True)
 
     # -- 2c/2d. K2 against its plain version, and the recovery workload
-    err_pq, times_pq, recall, (t_data, t_train) = phase_pq(torch, args.seed)
+    err_pq, times_pq, recall, (t_data, t_train), times_w = phase_pq(
+        torch, args.seed)
     torch.cuda.empty_cache()
     print(f"phase 2c ok: K2 == plain within {PQ_TOL} (max abs err "
-          f"{err_pq:.3g}) on {N_PQ} codes (m={PQ_M}); pq_topk top-20 == "
-          f"float64 ADC under the tie rule; " + "; ".join(
+          f"{err_pq:.3g}) on {N_PQ} codes (m={PQ_M}, and random codes at m="
+          f"{' and '.join(map(str, PQ_WIDTHS))}); pq_topk top-20 == "
+          f"float64 ADC under the tie rule at every m; " + "; ".join(
               f"N={n} Q={qp}: K2 {t['k2_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms"
               + (f", pq_topk top-20 {t['pq_topk_ms']:.4f} ms"
                  if "pq_topk_ms" in t else "")
-              for (n, qp), t in times_pq.items()), flush=True)
+              for (n, qp), t in times_pq.items()) + "; " + "; ".join(
+              f"m={m} Q={qp}: K2 {t['k2_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms" for (m, qp), t in times_w.items()),
+          flush=True)
     print(f"phase 2d ok: recovery workload ({RECOVERY_N} clustered docs, "
           f"{RECOVERY_Q} queries, corpus {t_data:.1f} s, PQ + OPQ + IVF "
           f"trained and coded on the card in {t_train:.1f} s): post-rescore "
@@ -1256,30 +1424,34 @@ def main() -> int:
     # -- 2e/2f/2g. the column-major kernels K4 and K3, their entry
     # points, and bench_scale
     docs_cm = colmajor_docs(torch, args.seed)
-    err_k4, times_k4 = phase_k4(torch, docs_cm, args.seed)
+    wide_t = wide_docs(torch, args.seed)
+    err_k4, times_k4 = phase_k4(torch, docs_cm, wide_t, args.seed)
     torch.cuda.empty_cache()
     print(f"phase 2e ok: K4 == plain within {CM_TOL} (max abs err "
           f"{err_k4:.3g}) at N={N_CM}, D={DIM}, seg_rows 8 and 16, n_valid "
-          f"{N_CM} and {N_CM_VALID}; dense_topk_twophase top-20 == float64 "
-          f"under the tie rule; " + "; ".join(
+          f"{N_CM} and {N_CM_VALID}, and at N={N_WIDE}, D={WIDE_D}, seg_rows "
+          f"8 and 64; dense_topk_twophase top-20 == float64 under the tie "
+          f"rule at both widths; " + "; ".join(
               f"{tag} Q={qp} sr={sr}: K4 {t['k4_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ("
               f"{t['bound'][1]})" + (f", two-phase top-32 "
                                      f"{t['twophase_ms']:.4f} ms"
                                      if "twophase_ms" in t else "")
               for (tag, qp, sr), t in times_k4.items()), flush=True)
-    err_k3, times_k3, k3_cases = phase_k3(torch, docs_cm, args.seed)
+    err_k3, times_k3, k3_cases = phase_k3(torch, docs_cm, wide_t, args.seed)
+    del wide_t
     torch.cuda.empty_cache()
     print(f"phase 2f ok: K3 == plain in {k3_cases} cases (scores within "
           f"{K3_TOL}, max abs err {err_k3:.3g}; ids equal under the "
           f"tie-aware rule; duplicate columns first, lowest id first), "
-          f"masked tail with n_valid 40 < k 64 included; " + "; ".join(
-              f"{tag} N={n} Q={qp} k=10: K3 {t['k3_ms']:.4f} ms, plain "
+          f"k={K3_BIG_K} at N={N_K3[2]} and k 10 and {K3_BIG_K} at D={WIDE_D} "
+          f"included, masked tail with n_valid 40 < k 64 included; " + "; ".join(
+              f"{tag} N={n} Q={qp} k={k}: K3 {t['k3_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ("
               f"{t['bound'][1]}), {t['library']}"
               + (f" {t['library_ms']:.4f} ms" if t["library_ms"] is not None
                  else "")
-              for (tag, n, qp), t in times_k3.items()), flush=True)
+              for (tag, n, qp, k), t in times_k3.items()), flush=True)
     k3_launches = phase_k3_path(torch, docs_cm, args.seed)
     del docs_cm
     torch.cuda.empty_cache()
@@ -1334,13 +1506,13 @@ def main() -> int:
           "store lacks its PQ/IVF artifacts")
 
     # -- 4. the port's main path: HTTP server over the engine on the card
-    engine, counts = phase_serve(store, args.docs, "cuda")
+    engine, counts, served = phase_serve(store, args.docs, "cuda")
 
     # -- 5. the same searches through a second engine on the CPU
-    phase_compare(store, engine, expansions)
+    phase_compare(store, engine, expansions, served)
 
     # -- 6. the PQ + IVF engine over HTTP, then the int8 and flat PQ tiers
-    ivf_engine, ivf_counts = phase_serve(store, args.docs, "cuda",
+    ivf_engine, ivf_counts, _ = phase_serve(store, args.docs, "cuda",
                                          config=pq_ivf_config(), kernel="K2",
                                          phase=6)
     check(ivf_engine.index.ivf_centroids is not None, "PQ engine without IVF")
@@ -1356,12 +1528,25 @@ def main() -> int:
     # each kernel's line at the main path's shapes: fp32, 8 queries (X1
     # and X2: the roofline experiment's bf16 docs, 64 queries, bn 8192)
     k1_t, k1_i8_t, k2_t = times[("fp32", 8)], times_i8[8], times_pq[(N_PQ, 8)]
-    k3_t, k4_t = times_k3[("fp32", N_K3[2], 8)], times_k4[("fp32", 8, 8)]
+    # the served batches of 64 and 68 (run at Q=128): the tensor cores
+    k1_64, k1_128 = times[("fp32", 64)], times[("fp32", 128)]
+    k3_t, k4_t = times_k3[("fp32", N_K3[2], 8, 10)], times_k4[("fp32", 8, 8)]
     rows = [
         ("segmax_rm (K1)", "segmax_rm.cu", "legal_rag_tpu/ops/dense.py:495",
          counts["K1"], max_err, k1_t["k1_ms"], k1_t["plain_ms"],
          bound(N_ROWS * DIM * 4 + 8 * DIM * 4 + 8 * N_ROWS // 8 * 4,
                2 * 8 * N_ROWS * DIM, "fp32"), None),
+        # fp32 products as 3xTF32 computes them: three TF32 products each
+        ("segmax_rm tensor cores (K1, Q=64)", "segmax_rm.cu",
+         "legal_rag_tpu/ops/dense.py:495", served[64][1]["K1 tensor cores"],
+         max_err, k1_64["k1_ms"], k1_64["plain_ms"],
+         bound(N_ROWS * DIM * 4 + 64 * DIM * 4 + 64 * N_ROWS // 8 * 4,
+               3 * 2 * 64 * N_ROWS * DIM, "tf32"), None),
+        ("segmax_rm tensor cores (K1, Q=128)", "segmax_rm.cu",
+         "legal_rag_tpu/ops/dense.py:495", served[68][1]["K1 tensor cores"],
+         max_err, k1_128["k1_ms"], k1_128["plain_ms"],
+         bound(N_ROWS * DIM * 4 + 128 * DIM * 4 + 128 * N_ROWS // 8 * 4,
+               3 * 2 * 128 * N_ROWS * DIM, "tf32"), None),
         ("segmax_rm int8 (K1-int8)", "segmax_rm.cu",
          "legal_rag_tpu/ops/dense.py:515", tier_counts["int8"]["K1-int8"],
          err_i8, k1_i8_t["k1_ms"], k1_i8_t["plain_ms"],

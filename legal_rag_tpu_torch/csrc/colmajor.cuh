@@ -1,5 +1,4 @@
-// Scoring of column-major docs, shared by K3 (fused_topk.cu) and K4
-// (segmax_cm.cu).
+// Scoring of column-major docs for K4 (segmax_cm.cu).
 //
 // The doc matrix is docs_t [D, N] (row e holds component e of every doc,
 // rows ``ld`` elements apart). One thread scores one doc column against
@@ -56,16 +55,15 @@ __device__ __forceinline__ float mac(float x, float q, float acc) {
   }
 }
 
-// acc[j] = sum over e = 0 .. d-1, in that order, of col[e * ld] * q_j[e]
-// for the QT query rows of ``qs``. 64-bit offsets: e * ld passes 2^31
+// acc[j] += sum over e = 0 .. d-1, in that order, of col[e * ld] *
+// q_j[e] for the QT query rows of ``qs`` (a chunk of a longer dot
+// product continues it in order). 64-bit offsets: e * ld passes 2^31
 // elements for large corpora.
 template <typename T, int QT, bool kFma>
-__device__ __forceinline__ void dot_column(const T* __restrict__ col,
-                                           long long ld, int d,
-                                           const float* qs, int dp,
-                                           float* acc) {
-#pragma unroll
-  for (int j = 0; j < QT; ++j) acc[j] = 0.f;
+__device__ __forceinline__ void dot_column_acc(const T* __restrict__ col,
+                                               long long ld, int d,
+                                               const float* qs, int dp,
+                                               float* acc) {
   int e = 0;
   for (; e + 8 <= d; e += 8) {
     float x[8];
@@ -94,6 +92,17 @@ __device__ __forceinline__ void dot_column(const T* __restrict__ col,
 #pragma unroll
     for (int j = 0; j < QT; ++j) acc[j] = mac<kFma>(x, qs[j * dp + e], acc[j]);
   }
+}
+
+// acc[j] = the whole dot product, from zero (dot_column_acc).
+template <typename T, int QT, bool kFma>
+__device__ __forceinline__ void dot_column(const T* __restrict__ col,
+                                           long long ld, int d,
+                                           const float* qs, int dp,
+                                           float* acc) {
+#pragma unroll
+  for (int j = 0; j < QT; ++j) acc[j] = 0.f;
+  dot_column_acc<T, QT, kFma>(col, ld, d, qs, dp, acc);
 }
 
 }  // namespace colmajor

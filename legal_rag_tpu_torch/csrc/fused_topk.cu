@@ -60,10 +60,18 @@
 //    built once per sort (E), so each holds only the network its
 //    buffers need. At the end of the split every buffer is refreshed
 //    and its best k written to the scratch [Q, n_splits, k].
+//    Large k (cap > 512 slots, k > 480): the buffers move to device
+//    memory (the block's rows of a scratch the wrapper allocates; the
+//    counters and thresholds stay in shared memory) and are sorted in
+//    place there, the same network.
+//    Large D (the query tile does not fit in shared memory with the
+//    ring): each ring stage also carries the 16 queries' [16, 32] chunk
+//    beside the doc chunk, so D has no limit.
 // 2. fused_topk_merge_kernel: a block of 8 warps per query. Each warp
 //    reduces every 8th run of 32 of the splits' n_splits * k candidates
 //    by the same threshold, ballot appends and sorts; warp 0 then
-//    merges the warps' best k.
+//    merges the warps' best k (in shared memory, or in device memory
+//    past 512 slots).
 //
 // Exactness: the global top-k entries are each within the best k of
 // their own split (fewer than k entries beat them anywhere), and every
@@ -87,6 +95,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma.cuh"
 #include "setup.cuh"
 
 namespace {
@@ -96,8 +105,8 @@ constexpr int kN = 128;                 // columns a tile
 constexpr int kWarpN = kN / kWarpsN;    // columns a warp
 constexpr int kMergeWarps = 8;          // warps a query's merge block
 constexpr int kK = 32;                  // depth of one staged k-chunk
-constexpr int kMaxK = 256;
-constexpr int kMaxCap = 512;
+constexpr int kMaxCap = 512;            // largest buffer kept in shared memory
+constexpr int kQPitch = kK + 8;         // a streamed query chunk's row
 constexpr unsigned kFull = 0xffffffffu;
 
 // The ring's shape per doc type: rows padded so that fragment loads hit
@@ -122,74 +131,6 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u);
 // (s, i) comes before (ts, ti): higher score, then lower id.
 __device__ __forceinline__ bool better(float s, int i, float ts, int ti) {
   return s > ts || (s == ts && i < ti);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy, the first src_bytes from src and the rest zero.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a (16 x 8, row) * b (8 x 8, col); tf32 in, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo (+ a rest below 2^-22 |x|), both TF32
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
 }
 
 // A doc or query element as its raw bits, for the element-wise loads.
@@ -323,9 +264,10 @@ __device__ __forceinline__ void sort_buffer(float* s, int* id, int c,
 }
 
 // Sorts a buffer of cap slots best first with one warp: in registers
-// (sort_reg) for E = cap / 32 of 2 or 4, in shared memory (sort_buffer)
-// for E = 0, the larger buffers. A partial kernel is built for one E, so
-// that it holds only the network its buffers need.
+// (sort_reg) for E = cap / 32 of 2 or 4, in place (sort_buffer) for E =
+// 0, the larger buffers in shared memory, and E = -1, buffers past
+// kMaxCap slots, which live in device memory. A partial kernel is built
+// for one E, so that it holds only the network its buffers need.
 template <int E>
 __device__ __forceinline__ void sort_any(float* s, int* id, int c, int cap,
                                          int k, float& kv, int& ki) {
@@ -370,7 +312,19 @@ struct Selection {
       : cap(cap_), pitch(cap_ + 1), qn(qn_) {
     s = static_cast<float*>(base);
     id = reinterpret_cast<int*>(s + qt * pitch);
-    cnt = id + qt * pitch;
+    set_counters(id + qt * pitch, qt);
+  }
+
+  // Buffers in device memory (gs, gi: the block's qt rows of cap + 1
+  // slots), counters and thresholds in shared memory at base.
+  __device__ Selection(void* base, float* gs, int* gi, int qt, int qn_,
+                       int cap_)
+      : s(gs), id(gi), cap(cap_), pitch(cap_ + 1), qn(qn_) {
+    set_counters(static_cast<int*>(base), qt);
+  }
+
+  __device__ void set_counters(int* base, int qt) {
+    cnt = base;
     head = cnt + qt;
     ts = reinterpret_cast<float*>(head + qt);
     ti = reinterpret_cast<int*>(ts + qt);
@@ -629,22 +583,22 @@ __device__ __forceinline__ void chunk_mma(const float* a_s, int a_pitch,
       const float* ar = a_w + mt * 16 * a_pitch + kk;
       const float2 x0 = *reinterpret_cast<const float2*>(ar);
       const float2 x1 = *reinterpret_cast<const float2*>(ar + 8 * a_pitch);
-      split_tf32(x0.x, ah[mt][0], al[mt][0]);   // (g, t)
-      split_tf32(x1.x, ah[mt][1], al[mt][1]);   // (g + 8, t)
-      split_tf32(x0.y, ah[mt][2], al[mt][2]);   // (g, t + 4)
-      split_tf32(x1.y, ah[mt][3], al[mt][3]);   // (g + 8, t + 4)
+      mma::split_tf32(x0.x, ah[mt][0], al[mt][0]);   // (g, t)
+      mma::split_tf32(x1.x, ah[mt][1], al[mt][1]);   // (g + 8, t)
+      mma::split_tf32(x0.y, ah[mt][2], al[mt][2]);   // (g, t + 4)
+      mma::split_tf32(x1.y, ah[mt][3], al[mt][3]);   // (g + 8, t + 4)
     }
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const float* br = b_w + kk * kPitch + nt * 8;
       unsigned bh0, bl0, bh1, bl1;
-      split_tf32(br[0], bh0, bl0);                // (k t, n g)
-      split_tf32(br[kPitch], bh1, bl1);           // (k t + 4, n g)
+      mma::split_tf32(br[0], bh0, bl0);                // (k t, n g)
+      mma::split_tf32(br[kPitch], bh1, bl1);           // (k t + 4, n g)
 #pragma unroll
       for (int mt = 0; mt < MW; ++mt) {
-        mma_tf32(acc[mt][nt], al[mt], bh0, bh1);
-        mma_tf32(acc[mt][nt], ah[mt], bl0, bl1);
-        mma_tf32(acc[mt][nt], ah[mt], bh0, bh1);
+        mma::mma_tf32(acc[mt][nt], al[mt], bh0, bh1);
+        mma::mma_tf32(acc[mt][nt], ah[mt], bl0, bl1);
+        mma::mma_tf32(acc[mt][nt], ah[mt], bh0, bh1);
       }
     }
   }
@@ -667,14 +621,14 @@ __device__ __forceinline__ void chunk_mma(const __nv_bfloat16* a_s,
     unsigned a[MW][4];
 #pragma unroll
     for (int mt = 0; mt < MW; ++mt) {
-      ldmatrix_x4(a[mt], a_s + (wt.row0 + mt * 16 + lrow) * a_pitch + kc * kK +
+      mma::ldmatrix_x4(a[mt], a_s + (wt.row0 + mt * 16 + lrow) * a_pitch + kc * kK +
                              kk + lcol);
     }
     unsigned b[4][2];
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
       unsigned r[4];
-      ldmatrix_x4_trans(r, bs + (kk + lrow) * kPitch + wt.col0 + np * 16 + lcol);
+      mma::ldmatrix_x4_trans(r, bs + (kk + lrow) * kPitch + wt.col0 + np * 16 + lcol);
       b[2 * np][0] = r[0];
       b[2 * np][1] = r[1];
       b[2 * np + 1][0] = r[2];
@@ -683,7 +637,7 @@ __device__ __forceinline__ void chunk_mma(const __nv_bfloat16* a_s,
 #pragma unroll
     for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+      for (int nt = 0; nt < 4; ++nt) mma::mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
   }
 }
 
@@ -692,14 +646,19 @@ __device__ __forceinline__ void chunk_mma(const __nv_bfloat16* a_s,
 // blocks in flight read neighbouring columns); writes each query's best
 // k of its tiles, best first, to part [n_q, n_splits, k]. The block has
 // WR x 4 warps (WR = 2 for 32 and 64 queries), each MT / WR m-tiles.
-template <typename T, int MT, int E>
+// kStreamQ: the queries do not fit in shared memory whole (large D), so
+// each ring stage also carries their [QT, 32] chunk. E = -1: the
+// candidate buffers are the block's rows of buf_s / buf_i in device
+// memory (large k).
+template <typename T, int MT, int E, bool kStreamQ>
 __global__ void __launch_bounds__(kWarpsN * 32 * (MT >= 2 ? 2 : 1), 1)
 fused_topk_partial_kernel(const T* __restrict__ docs_t, long long ld,
                           long long n, const T* __restrict__ queries,
                           int n_q, int d, int dp, int k, long long limit,
                           int cap, int n_splits, int aligned,
                           float* __restrict__ part_s,
-                          int* __restrict__ part_i) {
+                          int* __restrict__ part_i, float* __restrict__ buf_s,
+                          int* __restrict__ buf_i) {
   constexpr int QT = MT * 16;
   constexpr int WR = MT >= 2 ? 2 : 1;
   constexpr int MW = MT / WR;
@@ -709,20 +668,31 @@ fused_topk_partial_kernel(const T* __restrict__ docs_t, long long ld,
   constexpr int kElems = 16 / sizeof(T);            // a 16-byte copy
   constexpr int kRowCopies = kN / kElems;
   constexpr int kCopies = kK * kRowCopies / kBlock;
+  // a stage: the doc chunk [kK][kPitch], then (kStreamQ) the query
+  // chunk [QT][kQPitch]
+  constexpr int kStageElems = kK * kPitch + (kStreamQ ? QT * kQPitch : 0);
   extern __shared__ uint4 smem[];
-  T* b_s = reinterpret_cast<T*>(smem);               // [kStages][kK][kPitch]
-  T* a_s = b_s + kStages * kK * kPitch;              // [QT][a_pitch]
+  T* b_s = reinterpret_cast<T*>(smem);               // [kStages][kStageElems]
+  T* a_s = b_s + kStages * kStageElems;              // [QT][a_pitch] resident
   const int a_pitch = dp + 8;
   const int tid = threadIdx.x;
   const int split = blockIdx.x;
   const int q0 = blockIdx.y * QT;
   const int qn = min(QT, n_q - q0);
-  Selection sel(a_s + QT * a_pitch, QT, qn, cap);
+  void* sel_base = kStreamQ ? static_cast<void*>(a_s)
+                            : static_cast<void*>(a_s + QT * a_pitch);
+  const long long blk = static_cast<long long>(blockIdx.y) * n_splits + split;
+  Selection sel = E < 0 ? Selection(sel_base, buf_s + blk * QT * (cap + 1),
+                                    buf_i + blk * QT * (cap + 1), QT, qn, cap)
+                        : Selection(sel_base, QT, qn, cap);
   const WarpTile<MW> wt;
+  const bool q_aligned =
+      d % kElems == 0 && reinterpret_cast<uintptr_t>(queries) % 16 == 0;
 
   // the block's queries, zero past n_q and d: 16-byte loads where the
   // rows allow them, else element by element
-  if (d % kElems == 0 && reinterpret_cast<uintptr_t>(queries) % 16 == 0) {
+  if (kStreamQ) {
+  } else if (q_aligned) {
     const int row_vecs = dp / kElems;
     for (int i = tid; i < QT * row_vecs; i += kBlock) {
       const int r = i / row_vecs;
@@ -758,7 +728,33 @@ fused_topk_partial_kernel(const T* __restrict__ docs_t, long long ld,
   auto load_next = [&]() {
     const long long col_base = ld_tile * kN;
     const int k0 = ld_kc * kK;
-    T* dst = b_s + ld_stage * kK * kPitch;
+    T* dst = b_s + ld_stage * kStageElems;
+    if constexpr (kStreamQ) {
+      // the query chunk: columns k0 .. k0 + kK of the tile's queries
+      T* qdst = dst + kK * kPitch;
+      constexpr int kRowUnits = kK / kElems;
+      for (int i = tid; i < QT * kRowUnits; i += kBlock) {
+        const int r = i / kRowUnits;
+        const int c = (i - r * kRowUnits) * kElems;
+        const T* src = queries + static_cast<long long>(q0 + r) * d + k0 + c;
+        T* to = qdst + r * kQPitch + c;
+        if (q_aligned) {
+          const int left = r < qn ? d - (k0 + c) : 0;
+          const int bytes = left <= 0 ? 0
+                            : left >= kElems ? 16
+                                             : left * static_cast<int>(sizeof(T));
+          mma::cp_async<16>(to, bytes > 0 ? src : queries, bytes);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kElems; ++j) {
+            T v;
+            zero_elem(v);
+            if (r < qn && k0 + c + j < d) v = load_elem(src + j);
+            to[j] = v;
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
       const int idx = tid + i * kBlock;
@@ -773,7 +769,7 @@ fused_topk_partial_kernel(const T* __restrict__ docs_t, long long ld,
         const int bytes = left <= 0 ? 0
                           : left >= kElems ? 16
                                            : static_cast<int>(left) * static_cast<int>(sizeof(T));
-        cp_async16(to, bytes > 0 ? src : docs_t, bytes);
+        mma::cp_async<16>(to, bytes > 0 ? src : docs_t, bytes);
       } else {
 #pragma unroll
         for (int j = 0; j < kElems; ++j) {
@@ -794,7 +790,7 @@ fused_topk_partial_kernel(const T* __restrict__ docs_t, long long ld,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total) load_next();
-    cp_async_commit();
+    mma::cp_async_commit();
   }
 
   float acc[MW][4][4];
@@ -808,11 +804,16 @@ fused_topk_partial_kernel(const T* __restrict__ docs_t, long long ld,
   long long tile = split;
   int kc = 0, stage = 0;
   for (long long g = 0; g < total; ++g) {
-    cp_async_wait<kStages - 2>();   // chunk g has landed
+    mma::cp_async_wait<kStages - 2>();   // chunk g has landed
     __syncthreads();                // and every warp is done with g - 1
     if (g + kStages - 1 < total) load_next();
-    cp_async_commit();
-    chunk_mma<MW>(a_s, a_pitch, b_s + stage * kK * kPitch, kc, wt, acc);
+    mma::cp_async_commit();
+    const T* bs = b_s + stage * kStageElems;
+    if constexpr (kStreamQ) {
+      chunk_mma<MW>(bs + kK * kPitch, kQPitch, bs, 0, wt, acc);
+    } else {
+      chunk_mma<MW>(a_s, a_pitch, bs, kc, wt, acc);
+    }
     if (++stage == kStages) stage = 0;
     if (++kc == kc_n) {
       select_tile<MW, E>(sel, acc, wt, tile * kN, n, limit, k);
@@ -820,7 +821,7 @@ fused_topk_partial_kernel(const T* __restrict__ docs_t, long long ld,
       tile += n_splits;
     }
   }
-  cp_async_wait<0>();
+  mma::cp_async_wait<0>();
   __syncthreads();
   sel.refresh<E>(k);
   for (int i = tid; i < qn * k; i += kBlock) {
@@ -887,17 +888,21 @@ __device__ __forceinline__ void warp_select(Get get, int count, float* s,
 
 // One block per query: each of its warps keeps the best k of every
 // kMergeWarps-th run of 32 of the n_cand = n_splits * k candidates, then
-// warp 0 keeps the best k of the warps' kMergeWarps * k.
+// warp 0 keeps the best k of the warps' kMergeWarps * k. The warps'
+// buffers ([kMergeWarps + 1][cap] slots) are in shared memory, or
+// (kGlobal, cap > kMaxCap) the query's rows of gs / gi.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kMergeWarps * 32)
 fused_topk_merge_kernel(const float* __restrict__ part_s,
                         const int* __restrict__ part_i, int n_cand, int k,
-                        int cap, float* __restrict__ out_s,
-                        int* __restrict__ out_i) {
+                        int cap, float* __restrict__ gs, int* __restrict__ gi,
+                        float* __restrict__ out_s, int* __restrict__ out_i) {
   extern __shared__ uint4 smem[];
   const int warp = threadIdx.x / 32;
   const long long q = blockIdx.x;
-  float* s = reinterpret_cast<float*>(smem);              // [kMergeWarps + 1][cap]
-  int* id = reinterpret_cast<int*>(s + (kMergeWarps + 1) * cap);
+  const long long slots = static_cast<long long>(kMergeWarps + 1) * cap;
+  float* s = kGlobal ? gs + q * slots : reinterpret_cast<float*>(smem);
+  int* id = kGlobal ? gi + q * slots : reinterpret_cast<int*>(s + slots);
   const float* cs = part_s + q * n_cand;
   const int* ci = part_i + q * n_cand;
   // warp w takes runs w, w + kMergeWarps, ... of 32 candidates
@@ -934,13 +939,22 @@ constexpr long long ring_bytes() {
          sizeof(T);
 }
 
-long long partial_smem(int dtype, int d, int qt, int cap) {
+// The partial block's shared memory: the ring (with each stage's query
+// chunk when the queries stream), the resident queries otherwise, the
+// candidate buffers when they fit (cap <= kMaxCap), and four words a
+// query row.
+long long partial_smem(int dtype, int d, int qt, int cap, int stream_q) {
   const long long dp = (d + kK - 1) / kK * kK;
   const long long elt = dtype == 0 ? 4 : 2;
+  const long long stages = dtype == 0 ? Ring<float>::kStages
+                                      : Ring<__nv_bfloat16>::kStages;
   const long long ring = dtype == 0 ? ring_bytes<float>()
                                     : ring_bytes<__nv_bfloat16>();
-  return ring + qt * (dp + 8) * elt +
-         static_cast<long long>(qt) * (cap + 1) * 8 + qt * 16;
+  const long long queries = stream_q ? stages * qt * kQPitch * elt
+                                     : qt * (dp + 8) * elt;
+  const long long buffers =
+      cap <= kMaxCap ? static_cast<long long>(qt) * (cap + 1) * 8 : 0;
+  return ring + queries + buffers + qt * 16;
 }
 
 // The partial kernel's launch arguments.
@@ -959,43 +973,49 @@ struct PartialArgs {
   int aligned;
   void* part_s;
   void* part_i;
+  void* buf_s;
+  void* buf_i;
   int device;
   cudaStream_t stream;
 };
 
-template <typename T, int MT, int E>
+template <typename T, int MT, int E, bool S>
 cudaError_t launch_partial(const PartialArgs& a) {
   static std::atomic<unsigned long long> ready{0};
   cudaError_t err = setup::allow_max_smem(
-      fused_topk_partial_kernel<T, MT, E>, a.device, ready);
+      fused_topk_partial_kernel<T, MT, E, S>, a.device, ready);
   if (err != cudaSuccess) return err;
   const int dp = (a.d + kK - 1) / kK * kK;
   const int threads = kWarpsN * 32 * (MT >= 2 ? 2 : 1);
   const dim3 grid(static_cast<unsigned>(a.n_splits),
                   static_cast<unsigned>((a.n_q + MT * 16 - 1) / (MT * 16)));
-  fused_topk_partial_kernel<T, MT, E><<<grid, threads, a.smem, a.stream>>>(
+  fused_topk_partial_kernel<T, MT, E, S><<<grid, threads, a.smem, a.stream>>>(
       static_cast<const T*>(a.docs_t), a.ld, a.n,
       static_cast<const T*>(a.queries), a.n_q, a.d, dp, a.k, a.limit, a.cap,
       a.n_splits, a.aligned, static_cast<float*>(a.part_s),
-      static_cast<int*>(a.part_i));
+      static_cast<int*>(a.part_i), static_cast<float*>(a.buf_s),
+      static_cast<int*>(a.buf_i));
   return cudaGetLastError();
 }
 
-template <typename T, int MT>
+template <typename T, int MT, bool S>
 cudaError_t launch_sort(const PartialArgs& a) {
+  if (a.cap > kMaxCap) return launch_partial<T, MT, -1, S>(a);
   switch (sort_regs(a.cap)) {
-    case 2: return launch_partial<T, MT, 2>(a);
-    case 4: return launch_partial<T, MT, 4>(a);
-    default: return launch_partial<T, MT, 0>(a);
+    case 2: return launch_partial<T, MT, 2, S>(a);
+    case 4: return launch_partial<T, MT, 4, S>(a);
+    default: return launch_partial<T, MT, 0, S>(a);
   }
 }
 
+// Streamed queries take the 16-query tile only (large D is rare).
 template <typename T>
-cudaError_t launch_tile(int qt, const PartialArgs& a) {
+cudaError_t launch_tile(int qt, int stream_q, const PartialArgs& a) {
+  if (stream_q) return qt == 16 ? launch_sort<T, 1, true>(a) : cudaErrorInvalidValue;
   switch (qt) {
-    case 16: return launch_sort<T, 1>(a);
-    case 32: return launch_sort<T, 2>(a);
-    case 64: return launch_sort<T, 4>(a);
+    case 16: return launch_sort<T, 1, false>(a);
+    case 32: return launch_sort<T, 2, false>(a);
+    case 64: return launch_sort<T, 4, false>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1003,34 +1023,41 @@ cudaError_t launch_tile(int qt, const PartialArgs& a) {
 }  // namespace
 
 // Dynamic shared memory of the partial kernel, bytes, for dtype (0 =
-// float32, 1 = bfloat16), dimension d, query tile qt and buffer cap.
-extern "C" int fused_topk_smem_bytes(int dtype, int d, int qt, int cap) {
-  return static_cast<int>(partial_smem(dtype, d, qt, cap));
+// float32, 1 = bfloat16), dimension d, query tile qt, buffer cap and
+// whether the queries stream through the ring.
+extern "C" int fused_topk_smem_bytes(int dtype, int d, int qt, int cap,
+                                     int stream_q) {
+  return static_cast<int>(partial_smem(dtype, d, qt, cap, stream_q));
 }
 
 // docs_t [d, >= n columns] with row stride ld (elements), queries
-// [n_q, d] row-major; k <= min(n, 256), n < 2^31, d <= 1024. qt (16, 32
-// or 64) queries a block, cap (a power of two with k + 32 <= cap <=
-// 512) buffer slots a query, n_splits blocks a query tile along the
-// docs. Scratch part_s / part_i hold [n_q, n_splits, k]; out_s / out_i
-// are [n_q, k] (fp32, int32). Columns >= limit score -FLT_MAX and
-// compete. Returns the CUDA error of the launches (0 on success); both
-// run asynchronously on ``stream``.
+// [n_q, d] row-major; 1 <= k <= n < 2^31, any d >= 1. qt (16, 32 or 64)
+// queries a block, stream_q (qt 16 only) the queries through the ring,
+// cap (a power of two >= k + 32) buffer slots a query, n_splits blocks a
+// query tile along the docs. Scratch part_s / part_i hold [n_q,
+// n_splits, k]; for cap > 512, buf_s / buf_i hold the partial blocks'
+// buffers ([n_q tiles * n_splits, qt, cap + 1]) and mbuf_s / mbuf_i the
+// merge's ([n_q, 9, cap]). out_s / out_i are [n_q, k] (fp32, int32).
+// Columns >= limit score -FLT_MAX and compete. Returns the CUDA error of
+// the launches (0 on success); both run asynchronously on ``stream``.
 extern "C" int fused_topk_launch(const void* docs_t, long long ld,
                                  long long n, const void* queries, int n_q,
                                  int d, int k, long long limit, int qt,
-                                 int cap, int n_splits, void* part_s,
-                                 void* part_i, void* out_s, void* out_i,
-                                 int dtype, int device, void* stream) {
-  if (n_q < 1 || d < 1 || d > 1024 || k < 1 || k > kMaxK || k > n ||
-      n > INT_MAX || ld < n || n_splits < 1 ||
-      static_cast<long long>(n_splits) * k > INT_MAX ||
+                                 int cap, int n_splits, int stream_q,
+                                 void* part_s, void* part_i, void* buf_s,
+                                 void* buf_i, void* mbuf_s, void* mbuf_i,
+                                 void* out_s, void* out_i, int dtype,
+                                 int device, void* stream) {
+  if (n_q < 1 || d < 1 || k < 1 || k > n || n > INT_MAX || ld < n ||
+      n_splits < 1 || static_cast<long long>(n_splits) * k > INT_MAX ||
       (qt != 16 && qt != 32 && qt != 64) || (cap & (cap - 1)) != 0 ||
-      cap < k + 32 || cap > kMaxCap || (dtype != 0 && dtype != 1) ||
-      (n_q + qt - 1) / qt > 65535) {
+      cap < k + 32 || (dtype != 0 && dtype != 1) ||
+      (n_q + qt - 1) / qt > 65535 ||
+      (cap > kMaxCap && (buf_s == nullptr || buf_i == nullptr ||
+                         mbuf_s == nullptr || mbuf_i == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = partial_smem(dtype, d, qt, cap);
+  const long long smem = partial_smem(dtype, d, qt, cap, stream_q);
   if (smem > setup::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = setup::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1040,14 +1067,22 @@ extern "C" int fused_topk_launch(const void* docs_t, long long ld,
                       (ld * elt) % 16 == 0;
   const PartialArgs a{docs_t, ld, n, queries, n_q, d, k, limit, cap,
                       n_splits, static_cast<size_t>(smem), aligned, part_s,
-                      part_i, device, s};
-  err = dtype == 0 ? launch_tile<float>(qt, a)
-                   : launch_tile<__nv_bfloat16>(qt, a);
+                      part_i, buf_s, buf_i, device, s};
+  err = dtype == 0 ? launch_tile<float>(qt, stream_q, a)
+                   : launch_tile<__nv_bfloat16>(qt, stream_q, a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_topk_merge_kernel<<<n_q, kMergeWarps * 32,
-                            (kMergeWarps + 1) * cap * 8, s>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      n_splits * k, k, cap, static_cast<float*>(out_s),
-      static_cast<int*>(out_i));
+  if (cap > kMaxCap) {
+    fused_topk_merge_kernel<true><<<n_q, kMergeWarps * 32, 0, s>>>(
+        static_cast<const float*>(part_s), static_cast<const int*>(part_i),
+        n_splits * k, k, cap, static_cast<float*>(mbuf_s),
+        static_cast<int*>(mbuf_i), static_cast<float*>(out_s),
+        static_cast<int*>(out_i));
+  } else {
+    fused_topk_merge_kernel<false><<<n_q, kMergeWarps * 32,
+                                     (kMergeWarps + 1) * cap * 8, s>>>(
+        static_cast<const float*>(part_s), static_cast<const int*>(part_i),
+        n_splits * k, k, cap, nullptr, nullptr, static_cast<float*>(out_s),
+        static_cast<int*>(out_i));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,11 @@
 // passes over docs_t; blocks of the same doc range and different query
 // tiles are adjacent in launch order, so later passes mostly hit L2.
 //
+// Any D: a query tile too wide for shared memory ([QT, D] fp32 past
+// 227 KB, D > 3,632 at QT = 16) is staged in chunks of kChunkD columns,
+// and each member's dot product runs chunk by chunk, in order, with the
+// block's barriers between chunks.
+//
 // Numerics: fp32 fused multiply-adds in the order e = 0 .. D-1 (no
 // tensor cores, so no TF32). bf16 docs take bf16 queries; both widen
 // exactly to fp32.
@@ -42,15 +47,16 @@ namespace {
 
 constexpr int kThreads = 128;     // segments per block
 constexpr int kLanes = 128;       // the stride of a segment's docs
+constexpr int kChunkD = 2048;     // query columns a chunk, when D is staged in chunks
 
 template <typename T, int QT>
 __global__ void __launch_bounds__(kThreads)
 segmax_cm_kernel(const T* __restrict__ docs_t, long long ld,
                  const T* __restrict__ queries, int n_q, int d,
                  float* __restrict__ out, long long n_segs, int seg_rows,
-                 long long limit, int n_qt) {
+                 long long limit, int n_qt, int dc) {
   extern __shared__ float4 smem[];
-  float* qs = reinterpret_cast<float*>(smem);     // [QT, dp] fp32
+  float* qs = reinterpret_cast<float*>(smem);     // [QT, dc] fp32
   const int dp = (d + 3) & ~3;
   // the query tile varies fastest, so the blocks that read one doc
   // range run side by side and share it through L2
@@ -58,21 +64,54 @@ segmax_cm_kernel(const T* __restrict__ docs_t, long long ld,
   const long long sb = blockIdx.x / n_qt;
   const int q0 = qt * QT;
   const int qn = min(QT, n_q - q0);
-  colmajor::stage_queries<T, QT>(queries, q0, qn, d, dp, qs);
-  __syncthreads();
-
   const long long p = sb * kThreads + threadIdx.x;
-  if (p >= n_segs) return;
   const long long first = (p / kLanes) * seg_rows * kLanes + (p % kLanes);
   float m[QT], acc[QT];
 #pragma unroll
   for (int j = 0; j < QT; ++j) m[j] = -FLT_MAX;
-  for (int r = 0; r < seg_rows; ++r) {
-    const long long c = first + static_cast<long long>(r) * kLanes;
-    if (c >= limit) break;        // later members lie further right
-    colmajor::dot_column<T, QT, true>(docs_t + c, ld, d, qs, dp, acc);
+  if (dc >= dp) {
+    // the whole query tile at once
+    colmajor::stage_queries<T, QT>(queries, q0, qn, d, dp, qs);
+    __syncthreads();
+    if (p >= n_segs) return;
+    for (int r = 0; r < seg_rows; ++r) {
+      const long long c = first + static_cast<long long>(r) * kLanes;
+      if (c >= limit) break;        // later members lie further right
+      colmajor::dot_column<T, QT, true>(docs_t + c, ld, d, qs, dp, acc);
 #pragma unroll
-    for (int j = 0; j < QT; ++j) m[j] = fmaxf(m[j], acc[j]);
+      for (int j = 0; j < QT; ++j) m[j] = fmaxf(m[j], acc[j]);
+    }
+  } else {
+    // chunks of dc columns: every thread takes part in every chunk's
+    // staging, while any thread of the block has a member left
+    for (int r = 0; r < seg_rows; ++r) {
+      const long long c = first + static_cast<long long>(r) * kLanes;
+      const bool valid = p < n_segs && c < limit;
+      if (!__syncthreads_or(valid)) break;
+#pragma unroll
+      for (int j = 0; j < QT; ++j) acc[j] = 0.f;
+      for (int e0 = 0; e0 < d; e0 += dc) {
+        const int w = min(dc, d - e0);
+        __syncthreads();            // the last chunk's readers are done
+        for (int i = threadIdx.x; i < QT * dc; i += kThreads) {
+          const int j = i / dc;
+          const int e = i - j * dc;
+          qs[i] = (j < qn && e < w)
+                      ? colmajor::load_f32(queries + static_cast<long long>(q0 + j) * d + e0 + e)
+                      : 0.f;
+        }
+        __syncthreads();
+        if (valid) {
+          colmajor::dot_column_acc<T, QT, true>(docs_t + c + static_cast<long long>(e0) * ld,
+                                                ld, w, qs, dc, acc);
+        }
+      }
+      if (valid) {
+#pragma unroll
+        for (int j = 0; j < QT; ++j) m[j] = fmaxf(m[j], acc[j]);
+      }
+    }
+    if (p >= n_segs) return;
   }
 #pragma unroll
   for (int j = 0; j < QT; ++j) {
@@ -85,7 +124,11 @@ cudaError_t launch(const void* docs_t, long long ld, const void* queries,
                    int n_q, int d, void* out, long long n_segs, int seg_rows,
                    long long limit, int device, cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
-  const size_t smem = static_cast<size_t>(QT) * ((d + 3) & ~3) * sizeof(float);
+  // the whole query tile where it fits, else chunks of kChunkD columns
+  const int dp = (d + 3) & ~3;
+  const int dc = static_cast<long long>(QT) * dp * sizeof(float) <= setup::kMaxSmemBytes
+                     ? dp : kChunkD;
+  const size_t smem = static_cast<size_t>(QT) * dc * sizeof(float);
   cudaError_t err =
       setup::allow_max_smem(segmax_cm_kernel<T, QT>, device, ready);
   if (err != cudaSuccess) return err;
@@ -95,7 +138,7 @@ cudaError_t launch(const void* docs_t, long long ld, const void* queries,
   segmax_cm_kernel<T, QT><<<static_cast<unsigned>(blocks), kThreads, smem,
                             stream>>>(
       static_cast<const T*>(docs_t), ld, static_cast<const T*>(queries), n_q,
-      d, static_cast<float*>(out), n_segs, seg_rows, limit, n_qt);
+      d, static_cast<float*>(out), n_segs, seg_rows, limit, n_qt, dc);
   return cudaGetLastError();
 }
 
@@ -125,7 +168,7 @@ extern "C" int segmax_cm_launch(const void* docs_t, long long ld,
                                 void* out, long long n_segs, int seg_rows,
                                 long long limit, int dtype, int device,
                                 void* stream) {
-  if (n_q < 1 || d < 1 || d > 1024 || seg_rows < 1 || n_segs < kLanes ||
+  if (n_q < 1 || d < 1 || seg_rows < 1 || seg_rows > 64 || n_segs < kLanes ||
       n_segs % kLanes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,25 +12,73 @@ query-major, ``[Q, ceil(N / 8)]`` float32. It replaces the TPU kernel
 ``legal_rag_tpu/ops/pq.py _pq_segmax_kernel``; the tables are the bf16
 values that kernel reads, summed in fp32.
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
+On a CUDA tensor the wrapper launches a hand-written Hopper kernel in
 ``legal_rag_tpu_torch/csrc/pq_segmax.cu`` (built with nvcc on first use,
-loaded with ctypes) and raises on anything the kernel does not take.
-On CPU tensors it runs :func:`pq_segmax_reference`, the plain PyTorch
-version of the same function; nothing else ever takes that path.
+loaded with ctypes) and raises on anything the kernels do not take. Two
+kernels share the file, chosen by the code width, never by failure:
+every ``m % 4 == 0`` up to :data:`TC_MAX_M` takes the tensor-core kernel
+(the one-hot matrix of each subspace's codes times its slice of the
+tables, whose cost per doc is shared by every query of a tile;
+:func:`launch_plan` shrinks its query tile, whose tables stay in shared
+memory, as ``m`` grows); wider codes, up to :data:`MAX_M`, take the
+lookup kernel (one shared-memory table read per doc, query and
+subspace; one query's tables fit a block). On CPU tensors it runs
+:func:`pq_segmax_reference`, the plain PyTorch version of the same
+function; nothing else ever takes that path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
-SEG_ROWS = 8                          # the kernel's segment: 8 threads
-SUPPORTED_M = (8, 16, 32, 48)         # packed bytes per doc
+SEG_ROWS = 8                          # the kernel's segment: 8 rows
+QUERY_TILES = (64, 32, 16, 8)         # the kernel's builds, widest first
+MAX_SMEM = 232_448                    # dynamic shared memory a block can take
+_TILE = 256                           # docs a tensor-core block tile
+_LOOKUP_MAX_TILE = 64
 _NEG = float(torch.finfo(torch.float32).min)
 _REF_ELEMS = 1 << 24                  # plain version: gathered values per block
+
+
+def smem_bytes(m: int, query_tile: int, stages: int) -> int:
+    """The block's shared memory: the query tile's tables (rows of
+    ``2m * 16`` bf16 plus 16 bytes) and ``stages`` tiles of 128 code
+    rows; ``pq_segmax.cu smem_bytes`` computes the same."""
+    return query_tile * (64 * m + 16) + stages * _TILE * m
+
+
+class Plan(NamedTuple):
+    query_tile: int     # queries a block: one of QUERY_TILES
+    stages: int         # code tiles in flight: 2, or 1 where memory is short
+    smem: int           # a block's dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=512)
+def launch_plan(m: int, n_q: int) -> Plan:
+    """The smallest query tile that holds Q, or the widest that fits in
+    shared memory with two code stages, else with one; raises when not
+    even 8 queries' tables fit (m > MAX_M)."""
+    want = next((t for t in reversed(QUERY_TILES) if t >= n_q), QUERY_TILES[0])
+    for qt in QUERY_TILES:
+        if qt > want:
+            continue
+        for stages in (2, 1):
+            if smem_bytes(m, qt, stages) <= MAX_SMEM:
+                return Plan(qt, stages, smem_bytes(m, qt, stages))
+    raise ValueError(f"pq_segmax: m={m} > {TC_MAX_M}: 8 queries' tables "
+                     "do not fit in shared memory beside the codes")
+
+
+# the widest code rows whose tables fit the tensor-core kernel (8
+# queries, one stage) and the lookup kernel (one query)
+TC_MAX_M = max(m for m in range(4, 1024, 4) if smem_bytes(m, 8, 1) <= MAX_SMEM)
+MAX_M = MAX_SMEM // 64 // 4 * 4
 
 
 def unpack_nibbles(codes: torch.Tensor) -> torch.Tensor:
@@ -64,9 +112,22 @@ def pq_segmax_reference(
 K2 = CudaKernel("pq_segmax", "pq_segmax.cu", {
     "pq_segmax_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ],
+    "pq_segmax_smem_bytes": [ctypes.c_int] * 3,
+    "pq_segmax_lookup_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ],
 })
+
+
+def lookup_tile(m: int, n_q: int) -> int:
+    """The lookup kernel's queries a block: all of them up to 64, as
+    many as 232,448 bytes of tables hold."""
+    return max(1, min(_LOOKUP_MAX_TILE, n_q, MAX_SMEM // (64 * m)))
 
 
 def pq_segmax(
@@ -98,21 +159,54 @@ def pq_segmax(
         )
     if seg_rows != SEG_ROWS:
         raise ValueError(f"pq_segmax: the kernel takes seg_rows={SEG_ROWS}")
-    if m not in SUPPORTED_M:
-        raise ValueError(f"pq_segmax: m={m} not in {SUPPORTED_M}")
+    if m % 4 or not 0 < m <= MAX_M:
+        raise ValueError(f"pq_segmax: m={m}; the kernel takes m % 4 == 0 "
+                         f"up to {MAX_M}")
     if n == 0 or q == 0:
         raise ValueError(f"pq_segmax: need N > 0 and Q > 0 (got {n}, {q})")
     if not (codes.is_contiguous() and lut.is_contiguous()):
         raise ValueError("pq_segmax: codes and lut must be contiguous")
-    if codes.data_ptr() % 4 or lut.data_ptr() % 4:
-        raise ValueError("pq_segmax: tensors must be 4-byte aligned")
-    out = torch.empty((q, -(-n // seg_rows)), dtype=torch.float32,
+    if codes.data_ptr() % 4 or lut.data_ptr() % 16:
+        raise ValueError("pq_segmax: codes must be 4-byte and lut 16-byte "
+                         "aligned")
+    if m <= TC_MAX_M:
+        return _launch_tensor_cores(lut, codes)
+    return _launch_lookup(lut, codes)
+
+
+def _launch_tensor_cores(lut: torch.Tensor,
+                         codes: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel (m <= TC_MAX_M) on inputs :func:`pq_segmax`
+    has checked (tests call it beside the lookup kernel)."""
+    n, m = codes.shape
+    q = lut.shape[0]
+    out = torch.empty((q, -(-n // SEG_ROWS)), dtype=torch.float32,
                       device=codes.device)
-    lib = K2.library()
-    stream = current_stream(codes.device.index or 0)
-    err = lib.pq_segmax_launch(
+    plan = launch_plan(m, q)
+    ptr = codes.data_ptr()
+    vec = 16 if ptr % 16 == 0 else 8 if ptr % 8 == 0 else 4
+    dev = codes.device.index or 0
+    err = K2.library().pq_segmax_launch(
+        ptr, lut.data_ptr(), out.data_ptr(), n, m, q, plan.query_tile,
+        plan.stages, vec, dev, current_stream(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"pq_segmax kernel launch failed: CUDA error {err}")
+    K2.count_launch()
+    return out
+
+
+def _launch_lookup(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The lookup kernel (any m up to MAX_M) on inputs :func:`pq_segmax`
+    has checked."""
+    n, m = codes.shape
+    q = lut.shape[0]
+    out = torch.empty((q, -(-n // SEG_ROWS)), dtype=torch.float32,
+                      device=codes.device)
+    dev = codes.device.index or 0
+    err = K2.library().pq_segmax_lookup_launch(
         codes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, m, q,
-        codes.device.index or 0, stream,
+        lookup_tile(m, q), dev, current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"pq_segmax kernel launch failed: CUDA error {err}")

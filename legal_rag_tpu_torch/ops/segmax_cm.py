@@ -32,8 +32,7 @@ import torch
 from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 LANES = 128                           # the stride of a segment's docs
-SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16, 32)
-MAX_DIM = 1024
+SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = float(torch.finfo(torch.float32).min)
 
@@ -107,9 +106,9 @@ def segmax_cm(
     if seg_rows not in SUPPORTED_SEG_ROWS:
         raise ValueError(
             f"segmax_cm: seg_rows={seg_rows} not in {SUPPORTED_SEG_ROWS}")
-    if not 0 < d <= MAX_DIM or n == 0 or q == 0:
+    if d == 0 or n == 0 or q == 0:
         raise ValueError(
-            f"segmax_cm: need 0 < D <= {MAX_DIM}, N > 0 and Q > 0 "
+            f"segmax_cm: need D > 0, N > 0 and Q > 0 "
             f"(got D={d}, N={n}, Q={q})"
         )
     if docs_t.stride(1) != 1 or docs_t.stride(0) < n:

@@ -214,25 +214,73 @@ def test_fused_non_cpu_tensors_never_reach_the_plain_version():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_launch_plan_fits_every_shape(dtype):
-    """For every k in 1..256 and Q in 1..512 (D = 384 and 1024, a small
-    and a 1M corpus): a valid query tile, buffer and split count, and a
-    block's shared memory within the card's 232,448 bytes."""
+    """For every k in 1..256 and a few past it (shared buffers up to 480,
+    device-memory buffers above) and Q in 1..512 (D = 384, 1024, 1536
+    and 8200, a small and a 1M corpus): a valid query tile, buffer and
+    split count, a block's shared memory within the card's 232,448
+    bytes, the queries streamed only where they do not fit at 16, and
+    the large-k scratch within 1 GiB."""
     plan = k3.launch_plan.__wrapped__
-    for d in (384, 1024):
+    for d in (384, 1024, 1536, 8200):
         for n in (300, 1_007_616):
             tiles = -(-n // 128)
-            for k in range(1, k3.MAX_K + 1):
+            ks = [*range(1, 257, 1 if d <= 1024 else 17), 300, 480, 481, 1024]
+            for k in (k for k in ks if k <= n):
                 cap = k3.capacity(k)
-                assert cap & (cap - 1) == 0 and k + 32 <= cap <= 512
-                for n_q in range(1, 513):
+                assert cap & (cap - 1) == 0 and k + 32 <= cap < 2 * (k + 32)
+                for n_q in range(1, 513, 1 if d <= 1024 else 7):
                     p = plan(dtype, d, k, n, n_q, 132)
                     assert p.query_tile in (16, 32, 64)
                     assert p.query_tile >= min(n_q, 16)
                     assert -(-n_q // p.query_tile) <= 65535
                     assert p.cap == cap
                     assert 1 <= p.n_splits <= tiles
-                    assert p.smem == k3.smem_bytes(dtype, d, p.query_tile, cap)
+                    assert p.smem == k3.smem_bytes(dtype, d, p.query_tile, cap,
+                                                   p.stream_q)
                     assert p.smem <= k3.MAX_SMEM == 232_448
+                    assert p.stream_q == (k3.smem_bytes(
+                        dtype, d, 16, cap) > k3.MAX_SMEM)
+                    assert not p.stream_q or p.query_tile == 16
+                    if cap > 512:
+                        n_qt = -(-n_q // p.query_tile)
+                        scratch = p.n_splits * (n_q * k * 8 + n_qt
+                                                * p.query_tile * (cap + 1) * 8)
+                        assert p.n_splits == 1 or scratch <= 1 << 30
+
+
+def test_dense_topk_fused_large_k_matches_xla():
+    """ops.dense_topk(fused=True) at k = 300 (past the 256 the kernel
+    took before) against the JAX dense_topk_xla, which orders as K3 does:
+    score descending, ties by lowest id."""
+    rng = np.random.default_rng(300)
+    docs = _unit(rng, 1200, 48)
+    docs[600:610] = docs[5]
+    queries = _unit(rng, 6, 48)
+    queries[0] = docs[5]
+    ref = jdense.dense_topk_xla(jnp.asarray(queries), jnp.asarray(docs), 300)
+    got = tops.dense_topk(_t(queries), _t(docs), 300, fused=True)
+    assert_same(queries, docs, 300, got, ref)
+    assert got[1][0][:11].tolist() == [5, *range(600, 610)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_twophase_wide_dim_matches_jax(dtype):
+    """dense_topk_twophase at D=1536 (past the 1024 K4 took before)
+    against JAX's dense_topk_twophase in interpret mode."""
+    rng = np.random.default_rng(1536)
+    docs = _unit(rng, 2000, 1536)
+    docs[1000:1004] = docs[9]
+    queries = _unit(rng, 4, 1536)
+    queries[2] = docs[9]
+    ref = jdense.dense_topk_twophase(
+        jnp.asarray(queries, dtype), jnp.asarray(docs.T, dtype), 10,
+        block_n=1024, interpret=True)
+    tdt = getattr(torch, dtype)
+    got = dense_topk_twophase(_t(queries).to(tdt), _t(docs.T).to(tdt), 10)
+    qd = np.asarray(jnp.asarray(queries, dtype), np.float32)
+    dd = np.asarray(jnp.asarray(docs, dtype), np.float32)
+    assert_same(qd, dd, 10, got, ref)
+    assert got[1][2][:5].tolist() == [9, 1000, 1001, 1002, 1003]
 
 
 @pytest.mark.parametrize("n_q,k", [(64, 10), (64, 256)])
@@ -522,9 +570,65 @@ def test_fused_topk_shared_memory_plan_matches_the_kernel(cuda):
     """The wrapper's shared-memory sum is the kernel's own."""
     lib = k3.K3.library()
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        for d in (64, 102, 384, 1024):
+        for d in (64, 102, 384, 1024, 1536, 4096):
             for qt in (16, 32, 64):
-                for k in (1, 10, 64, 200, 256):
+                for k in (1, 10, 64, 200, 256, 300, 1024):
                     cap = k3.capacity(k)
-                    assert lib.fused_topk_smem_bytes(code, d, qt, cap) == \
-                        k3.smem_bytes(dtype, d, qt, cap)
+                    for stream_q in (0, 1):
+                        assert lib.fused_topk_smem_bytes(
+                            code, d, qt, cap, stream_q) == k3.smem_bytes(
+                                dtype, d, qt, cap, bool(stream_q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n_q,k", [
+    (384, 8, 300), (384, 64, 1024), (1536, 19, 10), (1536, 64, 300),
+    (1536, 8, 1024), (8200, 3, 64),
+])
+def test_fused_topk_large_k_and_d_on_gpu(cuda, dtype, d, n_q, k):
+    """k past 256 (buffers in shared memory up to 480, in device memory
+    above) and D past 1024 (the query tile resident while it fits, else
+    streamed with the docs) against the plain version, under the
+    tie-aware rule with duplicate columns first. Tolerance 1e-5 per 384
+    dims: the plain version's in-order fp32 sum of D rounded products
+    drifts from the tensor cores' sum in proportion to D (2.1e-5 at
+    D=1536 and 7.7e-5 at D=8200 were read on the card)."""
+    rng = np.random.default_rng(d + k + n_q)
+    n = 20_000 + 37
+    docs_t = torch.from_numpy(_unit(rng, n, d).T.copy()).to(cuda, dtype)
+    dups = [129, 3000, n // 2]
+    docs_t[:, dups] = docs_t[:, 7:8]
+    q = torch.from_numpy(_unit(rng, n_q, d)).to(cuda, dtype)
+    q[0] = docs_t[:, 7]
+    plan = k3.launch_plan(dtype, d, k, n, n_q, k3.sm_count(0))
+    assert plan.stream_q == (d == 8200)
+    before = k3.K3.launches
+    got_s, got_i = k3.fused_topk(q, docs_t, k)
+    scores = k3.fused_scores_reference(q, docs_t)
+    torch.cuda.synchronize()
+    assert k3.K3.launches == before + 1
+    assert_topk_tie_aware(scores, k, got_s, got_i, tol=TOL * max(1, d / 384))
+    assert got_i[0, :4].tolist() == [7, *dups]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,seg_rows", [(1536, 8), (1536, 64), (384, 64),
+                                        (4000, 16)])
+def test_segmax_cm_wide_and_seg_rows_64_on_gpu(cuda, dtype, d, seg_rows):
+    """K4 past D=1024 (whole query tile while it fits; D=4000 stages it
+    in column chunks) and at seg_rows 64, against the plain version."""
+    rng = np.random.default_rng(d + seg_rows)
+    n = 20_000 + 37
+    docs_t = torch.from_numpy(_unit(rng, n, d).T.copy()).to(cuda, dtype)
+    before = k4.K4.launches
+    for n_q in (8, 19):
+        q = torch.from_numpy(_unit(rng, n_q, d)).to(cuda, dtype)
+        for n_valid in (n, n - 3001):
+            got = k4.segmax_cm(q, docs_t, n_valid, seg_rows)
+            ref = k4.segmax_cm_reference(q, docs_t, n_valid, seg_rows)
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape == (n_q, k4.n_segments(n, seg_rows))
+            torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    assert k4.K4.launches == before + 4

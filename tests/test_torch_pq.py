@@ -50,6 +50,11 @@ def jax_cb(clustered):
     return jpq.train_pq(clustered[0], m=M, iters=15, seed=0, opq_iters=4)
 
 
+def _unit_rows(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
 def assert_same_under_ties(got_s, got_i, ref_s, ref_i, tol=TOL):
     """Finite scores equal within ``tol`` rank by rank; where ids differ,
     the reference holds the port's id at a rank whose score ties (within
@@ -180,6 +185,59 @@ def test_pq_topk_matches_jax(clustered, jax_cb, n, n_valid, k):
     fin = torch.isfinite(got_s)
     assert bool((got_i[fin] < limit).all())
     assert_same_under_ties(got_s, got_i, ref_s, ref_i)
+
+
+@pytest.mark.parametrize("m", [24, 96])
+def test_pq_topk_wide_codes_match_jax(m):
+    """Code widths K2 admits beyond 8-48 (D=384: 8 and 2 dims a nibble
+    subspace), on 1,500 docs coded by the JAX package with seeded
+    codebooks: the port's pq_topk against the JAX pq_topk in interpret
+    mode, scores within 1e-5 (fp32 sums of 2m bf16 entries in another
+    order), ids under the tie rule, the duplicates of doc 7 first."""
+    rng = np.random.default_rng(m)
+    d = 384
+    cb = jpq.PQCodebook(
+        codebooks=(rng.standard_normal((2 * m, 16, d // (2 * m))) * 0.1
+                   ).astype(np.float32),
+        rotation=None)
+    docs = _unit_rows(rng, 1500, d)
+    docs[900:905] = docs[7]
+    codes = jpq.encode_pq(docs, cb)
+    assert codes.shape == (1500, m)
+    q = _unit_rows(rng, 9, d)
+    q[0] = jpq.decode_pq(codes[7:8], cb)[0]
+    ref_s, ref_i = jpq.pq_topk(
+        jnp.asarray(q), jnp.asarray(codes), jnp.asarray(cb.codebooks), 20,
+        n_valid=jnp.int32(1490), block_n=512, interpret=True,
+    )
+    got_s, got_i = tpq.pq_topk(
+        torch.from_numpy(q), torch.from_numpy(codes),
+        torch.from_numpy(cb.codebooks), 20, n_valid=1490,
+    )
+    assert got_s.shape == (9, 20) and bool((got_i < 1490).all())
+    assert_same_under_ties(got_s, got_i, ref_s, ref_i)
+    assert got_i[0, :6].tolist() == [7, 900, 901, 902, 903, 904]
+
+
+def test_pq_segmax_launch_plan_fits_every_width():
+    """Every m % 4 == 0 up to TC_MAX_M (and Q up to 128) plans a built
+    query tile that holds Q where it fits, and a block within 232,448
+    bytes of shared memory; wider codes raise there and take the lookup
+    kernel, whose tile holds at least one query's tables."""
+    for m, n_q in ((m, n_q) for m in range(4, 400, 4) for n_q in range(1, 129)):
+        if m > k2.TC_MAX_M:
+            assert k2.lookup_tile(m, n_q) >= 1 and m <= k2.MAX_M
+            with pytest.raises(ValueError, match="fit"):
+                k2.launch_plan.__wrapped__(m, n_q)
+            continue
+        p = k2.launch_plan.__wrapped__(m, n_q)
+        assert p.query_tile in k2.QUERY_TILES and p.stages in (1, 2)
+        assert p.smem == k2.smem_bytes(m, p.query_tile, p.stages)
+        assert p.smem <= k2.MAX_SMEM == 232_448
+        want = min(t for t in k2.QUERY_TILES if t >= min(n_q, 64))
+        fits = [t for t in k2.QUERY_TILES
+                if t <= want and k2.smem_bytes(m, t, 1) <= k2.MAX_SMEM]
+        assert p.query_tile == max(fits)
 
 
 def test_pq_search_rescored_matches_jax(clustered, jax_cb):
@@ -433,3 +491,43 @@ def test_pq_segmax_kernel_matches_plain_on_gpu(cuda, n_q, n):
     ref = k2.pq_segmax_reference(lut, codes)
     assert got.shape == ref.shape == (n_q, -(-n // 8))
     torch.testing.assert_close(got, ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 12, 24, 48, 96, 192, 256, 384])
+@pytest.mark.parametrize("n_q,n", [(8, 8 * 700 - 5), (67, 8 * 640 + 3),
+                                   (128, 8 * 300 + 5)])
+def test_pq_segmax_every_width_on_gpu(cuda, m, n_q, n):
+    """Every m % 4 == 0 the reference serves at D=384 and 768: the query
+    tile shrinks as the tables grow (launch_plan); the dispatch (the
+    tensor cores up to TC_MAX_M, lookups above) and each kernel alone
+    agree with the plain version within 1e-5 (fp32 sums of 2m bf16
+    entries in another order), one launch each."""
+    rng = np.random.default_rng(m + n_q)
+    codes = torch.from_numpy(rng.integers(0, 256, (n, m), dtype=np.uint8)).to(cuda)
+    codes[100:140] = codes[3]
+    lut = torch.from_numpy(
+        rng.standard_normal((n_q, 2 * m, 16)).astype(np.float32) * 0.05
+    ).to(cuda, torch.bfloat16)
+    ref = k2.pq_segmax_reference(lut, codes)
+    wide = m > k2.TC_MAX_M              # the lookup kernel alone
+    launches = [k2.pq_segmax, k2._launch_lookup]
+    if not wide:
+        launches.append(k2._launch_tensor_cores)
+    for launch in launches:
+        before = k2.K2.launches
+        got = launch(lut, codes)
+        torch.cuda.synchronize()
+        assert k2.K2.launches == before + 1
+        assert got.shape == ref.shape == (n_q, -(-n // 8))
+        torch.testing.assert_close(got, ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_pq_segmax_shared_memory_plan_matches_the_kernel(cuda):
+    lib = k2.K2.library()
+    for m in range(4, k2.MAX_M + 1, 4):
+        for qt in k2.QUERY_TILES:
+            for stages in (1, 2):
+                assert lib.pq_segmax_smem_bytes(m, qt, stages) == \
+                    k2.smem_bytes(m, qt, stages)
