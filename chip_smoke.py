@@ -30,10 +30,12 @@ Phases, one output line each:
    card (1,048,576 clustered docs, 64 queries, post-rescore recall@10
    at oversample 64, flat and at 512 probes);
 2e. K4 against its plain version on column-major docs (1,048,576 docs,
-   D=384, 8 and 64 queries, fp32 and bf16, seg_rows 8 and 16, odd
-   n_valid, duplicate columns; and 262,144 docs at D=1536, seg_rows 8
-   and 64), dense_topk_twophase's top-20 against a float64 brute force,
-   both versions' times;
+   D=384, 8, 16, 32, 64 and 128 queries, fp32 and bf16, seg_rows 8, 16,
+   32 and 64, odd n_valid, duplicate columns; and 262,144 docs at
+   D=1536, seg_rows 8 and 64), dense_topk_twophase's top-20 against a
+   float64 brute force, both versions' times beside cuBLAS ``q @
+   docs_t`` alone and the bound (fp32 counted as 3xTF32's three TF32
+   products);
 2f. K3 against its plain version (2,620, 65,536 and 1,007,616 docs, 8
    and 64 queries, k 10 and 64, fp32 and bf16, k=300 at 1,007,616 docs,
    k 10 and 300 at D=1536, and a masked tail with n_valid < k): scores
@@ -78,7 +80,8 @@ Phases, one output line each:
    engine's under the tie-aware rule, and the int8 engine's weighted
    results equal to the fp32 engine's.
 
-Then a JSON line with each kernel's launches, error, times and bound,
+Then a JSON line with each kernel's launches, error, times and bound
+(K4 at fp32 Q=8 and at bench_scale's bf16 Q=64),
 and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the exit code is non-zero and that last line is not printed. No module
 of the JAX package (``legal_rag_tpu``) may be loaded by the end.
@@ -132,6 +135,8 @@ TOPK_TOL = 1e-5     # tie band of tests/test_dense.py
 DENSE_TOL = 1e-5    # GPU vs CPU engine: query embeddings and dot products
                     # in fp32 with other summation orders
 CM_TOL = 1e-5       # K4 vs plain: fp32 sums of 384 products in another order
+# K4's batches (one query tile of 8-64, two of 64) and seg_rows at D=384
+K4_QS, K4_SEG_ROWS = (8, 16, 32, 64, 128), (8, 16, 32, 64)
 N_CM, N_CM_VALID = 1 << 20, 1_000_003     # K4's docs; an odd n_valid
 N_K3 = (2_620, 65_536, 1_007_616)   # the serving corpus, LARGE_N_THRESHOLD,
                                     # the 1M store's padded rows
@@ -534,9 +539,11 @@ def wide_docs(torch, seed: int):
 
 
 def phase_k4(torch, docs32, wide_t, seed: int):
-    """K4 against its plain version, and dense_topk_twophase's top-20
-    against float64 (and at D=1536 and seg_rows 64 over ``wide_t``);
-    returns the max error and the times."""
+    """K4 against its plain version at every K4_QS and K4_SEG_ROWS, and
+    dense_topk_twophase's top-20 against float64 (and at D=1536 and
+    seg_rows 8 and 64 over ``wide_t``); times at seg_rows 8 for every Q
+    and at Q=64 for every seg_rows, beside cuBLAS ``q @ docs_t`` alone
+    and the bound; returns the max error and the times."""
     from legal_rag_tpu_torch.utils.timing import time_ms
     from legal_rag_tpu_torch.ops.dense import dense_topk_twophase
     from legal_rag_tpu_torch.ops.segmax_cm import (
@@ -547,9 +554,11 @@ def phase_k4(torch, docs32, wide_t, seed: int):
     max_err, times = 0.0, {}
     for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         docs_t = docs32.T.contiguous().to(dtype)
-        for qp in (8, 64):
+        elt = docs_t.element_size()
+        for qp in K4_QS:
             q = unit_queries(torch, g, qp, docs32).to(dtype)
-            for seg_rows in (8, 16):
+            cublas_ms = time_ms(lambda: q @ docs_t)
+            for seg_rows in K4_SEG_ROWS:
                 for n_valid in (N_CM, N_CM_VALID):
                     got = segmax_cm(q, docs_t, n_valid, seg_rows)
                     ref = segmax_cm_reference(q, docs_t, n_valid, seg_rows)
@@ -561,18 +570,24 @@ def phase_k4(torch, docs32, wide_t, seed: int):
                     check(err <= CM_TOL, f"K4 {tag} Q={qp} seg_rows "
                           f"{seg_rows} n_valid {n_valid}: error {err}")
                     max_err = max(max_err, err)
+                if seg_rows != 8 and qp != 64:
+                    continue
                 k4 = lambda: segmax_cm(q, docs_t, N_CM, seg_rows)
                 plain = lambda: segmax_cm_reference(q, docs_t, N_CM, seg_rows)
                 p1, ka, kb, p2 = (time_ms(f)
                                   for f in (plain, k4, k4, plain))
-                elt = docs_t.element_size()
+                # fp32 products as 3xTF32 computes them: three TF32 each
                 times[(tag, qp, seg_rows)] = {
                     "k4_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
+                    "cublas_ms": cublas_ms,
                     "bound": bound(
                         N_CM * DIM * elt + qp * DIM * elt
                         + qp * n_segments(N_CM, seg_rows) * 4,
-                        2 * qp * N_CM * DIM, tag),
+                        (3 if tag == "fp32" else 1) * 2 * qp * N_CM * DIM,
+                        "tf32" if tag == "fp32" else "bf16"),
                 }
+            if qp not in (8, 64):
+                continue
             s, i = dense_topk_twophase(q, docs_t, 20, n_valid=N_CM_VALID)
             assert_topk_equiv(torch, q.float(), docs_t.T.float(), N_CM_VALID,
                               20, s, i)
@@ -1428,12 +1443,14 @@ def main() -> int:
     err_k4, times_k4 = phase_k4(torch, docs_cm, wide_t, args.seed)
     torch.cuda.empty_cache()
     print(f"phase 2e ok: K4 == plain within {CM_TOL} (max abs err "
-          f"{err_k4:.3g}) at N={N_CM}, D={DIM}, seg_rows 8 and 16, n_valid "
-          f"{N_CM} and {N_CM_VALID}, and at N={N_WIDE}, D={WIDE_D}, seg_rows "
-          f"8 and 64; dense_topk_twophase top-20 == float64 under the tie "
-          f"rule at both widths; " + "; ".join(
+          f"{err_k4:.3g}) at N={N_CM}, D={DIM}, Q {', '.join(map(str, K4_QS))}"
+          f", seg_rows {', '.join(map(str, K4_SEG_ROWS))}, n_valid {N_CM} and "
+          f"{N_CM_VALID}, and within {WIDE_TOL:.1e} at N={N_WIDE}, D={WIDE_D},"
+          f" seg_rows 8 and 64; dense_topk_twophase top-20 == float64 under "
+          f"the tie rule at both widths; " + "; ".join(
               f"{tag} Q={qp} sr={sr}: K4 {t['k4_ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ("
+              f"{t['plain_ms']:.4f} ms, cuBLAS q @ docs_t alone "
+              f"{t['cublas_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ("
               f"{t['bound'][1]})" + (f", two-phase top-32 "
                                      f"{t['twophase_ms']:.4f} ms"
                                      if "twophase_ms" in t else "")
@@ -1531,6 +1548,8 @@ def main() -> int:
     # the served batches of 64 and 68 (run at Q=128): the tensor cores
     k1_64, k1_128 = times[("fp32", 64)], times[("fp32", 128)]
     k3_t, k4_t = times_k3[("fp32", N_K3[2], 8, 10)], times_k4[("fp32", 8, 8)]
+    # K4 at bench_scale's batch: bf16, 64 queries
+    k4_64 = times_k4[("bf16", 64, 8)]
     rows = [
         ("segmax_rm (K1)", "segmax_rm.cu", "legal_rag_tpu/ops/dense.py:495",
          counts["K1"], max_err, k1_t["k1_ms"], k1_t["plain_ms"],
@@ -1563,6 +1582,9 @@ def main() -> int:
         ("segmax_cm (K4)", "segmax_cm.cu", "legal_rag_tpu/ops/dense.py:277",
          bench_counts["K4"], err_k4, k4_t["k4_ms"], k4_t["plain_ms"],
          k4_t["bound"], None),
+        ("segmax_cm (K4, bf16 Q=64)", "segmax_cm.cu",
+         "legal_rag_tpu/ops/dense.py:277", bench_counts["K4"], err_k4,
+         k4_64["k4_ms"], k4_64["plain_ms"], k4_64["bound"], None),
         ("argmax_probe (P)", "argmax_probe.cu", "tests/test_tpu_hardware.py:53",
          probe["launches"], 0, probe["ms"], probe["plain_ms"],
          bound(8 * 256 * 4 + 8 * 4, 8 * 256, "fp32"), probe["library_ms"]),

@@ -1,6 +1,7 @@
 // Tensor-core and async-copy building blocks shared by the kernels that
 // run on mma.sync: K1's tensor-core path (segmax_rm.cu), K2
-// (pq_segmax.cu) and K3 (fused_topk.cu). Each wraps one PTX instruction.
+// (pq_segmax.cu), K3 (fused_topk.cu) and K4 (segmax_cm.cu). Each wraps
+// one PTX instruction.
 
 #pragma once
 

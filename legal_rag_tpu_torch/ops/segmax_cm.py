@@ -17,15 +17,29 @@ equals the TPU kernel's map on every segment both emit; the TPU's extra
 trailing segments, from its padding to ``block_n``, are all masked.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``legal_rag_tpu_torch/csrc/segmax_cm.cu`` (built with nvcc on first use,
-loaded with ctypes) and raises on anything the kernel does not take.
-On CPU tensors it runs :func:`segmax_cm_reference`, the plain PyTorch
-version of the same function; nothing else ever takes that path.
+``legal_rag_tpu_torch/csrc/segmax_cm.cu`` (on the tensor cores by
+``mma.sync``: bf16 directly, fp32 as 3xTF32; built with nvcc on first
+use, loaded with ctypes) and raises on anything the kernel does not
+take. It takes every ``seg_rows`` in :data:`SUPPORTED_SEG_ROWS`, any
+``D`` and any ``Q`` (query tiles of at most 64, several of them past
+64), any row stride and alignment. On CPU tensors it runs
+:func:`segmax_cm_reference`, the plain PyTorch version of the same
+function; nothing else ever takes that path.
+
+Numerics: the tensor cores sum the products in their own order, so the
+map agrees with the plain version within ``1e-5`` on unit vectors at
+D = 384, not bit for bit; identical doc columns score identically.
+
+:func:`launch_plan` derives the kernel's query tile and whether the
+queries stay resident in shared memory or stream with the docs, so that
+a block's shared memory stays within 232,448 bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +47,15 @@ from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 LANES = 128                           # the stride of a segment's docs
 SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16, 32, 64)
+QUERY_TILES = (8, 16, 32, 64)         # the kernel's builds
+MAX_SMEM = 232_448                    # dynamic shared memory a block can take
+# the most a block may take for two to share an SM (233,472 bytes, 1 KB
+# reserved a block)
+TWO_BLOCKS_SMEM = 233_472 // 2 - 1024
+_DEPTH = 32                           # rows of docs_t a staged chunk holds
+_QPITCH = _DEPTH + 8                  # a streamed query chunk's row
+# the kernel's ring by element size: (stages, row pitch in elements)
+_RING = {4: (4, LANES + 4), 2: (6, LANES + 8)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = float(torch.finfo(torch.float32).min)
 
@@ -40,8 +63,10 @@ K4 = CudaKernel("segmax_cm", "segmax_cm.cu", {
     "segmax_cm_launch": [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ],
+    "segmax_cm_smem_bytes": [ctypes.c_int] * 4,
 })
 
 
@@ -75,6 +100,38 @@ def segmax_cm_reference(
     scores[:, :limit] = queries.float() @ docs_t[:, :limit].float()
     groups = scores.view(q, n_segs // LANES, seg_rows, LANES)
     return groups.amax(dim=2).reshape(q, n_segs)
+
+
+class Plan(NamedTuple):
+    query_tile: int     # queries a block: one of QUERY_TILES
+    stream_q: bool      # queries stream with the docs (else resident)
+    smem: int           # a block's dynamic shared memory, bytes
+
+
+def smem_bytes(elt: int, d: int, query_tile: int, stream_q: bool) -> int:
+    """A block's shared memory: the ring of doc chunks (4 stages of 32
+    rows of 132 fp32 or 6 of 136 bf16) and either the resident queries
+    (rows of D rounded up to 32, plus 8) or each stage's query chunk
+    (rows of 40); ``segmax_cm.cu smem_bytes`` computes the same."""
+    stages, pitch = _RING[elt]
+    stage = _DEPTH * pitch + (query_tile * _QPITCH if stream_q else 0)
+    resident = 0 if stream_q else query_tile * (-(-d // _DEPTH) * _DEPTH + 8)
+    return (stages * stage + resident) * elt
+
+
+@functools.lru_cache(maxsize=512)
+def launch_plan(dtype: torch.dtype, d: int, n_q: int) -> Plan:
+    """The smallest query tile that holds Q, or 64 a tile (several query
+    tiles) above 64; the queries resident in shared memory where they
+    fit, unless streaming them with the docs lets two blocks share an SM
+    and resident queries would not."""
+    elt = dtype.itemsize
+    qt = next((t for t in QUERY_TILES if t >= n_q), QUERY_TILES[-1])
+    resident = smem_bytes(elt, d, qt, False)
+    stream_q = resident > MAX_SMEM or (
+        resident > TWO_BLOCKS_SMEM
+        and smem_bytes(elt, d, qt, True) <= TWO_BLOCKS_SMEM)
+    return Plan(qt, stream_q, smem_bytes(elt, d, qt, stream_q))
 
 
 def segmax_cm(
@@ -117,12 +174,13 @@ def segmax_cm(
         raise ValueError("segmax_cm: queries must be contiguous")
     n_segs = n_segments(n, seg_rows)
     out = torch.empty((q, n_segs), dtype=torch.float32, device=docs_t.device)
-    lib = K4.library()
-    stream = current_stream(docs_t.device.index or 0)
-    err = lib.segmax_cm_launch(
+    plan = launch_plan(docs_t.dtype, d, q)
+    dev = docs_t.device.index or 0
+    err = K4.library().segmax_cm_launch(
         docs_t.data_ptr(), docs_t.stride(0), queries.data_ptr(), q, d,
         out.data_ptr(), n_segs, seg_rows, max(0, min(int(n_valid), n)),
-        _DTYPE_CODES[docs_t.dtype], docs_t.device.index or 0, stream,
+        _DTYPE_CODES[docs_t.dtype], plan.query_tile, int(plan.stream_q), dev,
+        current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"segmax_cm kernel launch failed: CUDA error {err}")

@@ -426,6 +426,31 @@ def test_segmax_cm_non_cpu_tensors_never_reach_the_plain_version():
         k4.segmax_cm(q, d, 1000, 8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segmax_cm_launch_plan_fits_every_shape(dtype):
+    """For every width up to 8,192 and Q in 1..200: the smallest built
+    query tile that holds Q, or tiles of 64 (ceil(Q / 64) of them) above
+    64, and a block's shared memory within the card's 232,448 bytes, the
+    queries resident wherever they fit unless streaming them lets two
+    blocks share an SM."""
+    elt = dtype.itemsize
+    plan = k4.launch_plan.__wrapped__
+    assert k4.QUERY_TILES == (8, 16, 32, 64)
+    two = k4.TWO_BLOCKS_SMEM
+    for d in range(1, 8193):
+        for n_q in range(1, 201):
+            p = plan(dtype, d, n_q)
+            assert p.query_tile == min(t for t in k4.QUERY_TILES
+                                       if t >= min(n_q, 64))
+            assert -(-n_q // p.query_tile) == -(-n_q // 64)
+            assert p.smem == k4.smem_bytes(elt, d, p.query_tile, p.stream_q)
+            assert p.smem <= k4.MAX_SMEM == 232_448
+            resident = k4.smem_bytes(elt, d, p.query_tile, False)
+            streamed = k4.smem_bytes(elt, d, p.query_tile, True)
+            assert p.stream_q == (resident > k4.MAX_SMEM or (
+                resident > two and streamed <= two))
+
+
 # -- the dispatcher and the bench --------------------------------------
 
 
@@ -617,8 +642,9 @@ def test_fused_topk_large_k_and_d_on_gpu(cuda, dtype, d, n_q, k):
 @pytest.mark.parametrize("d,seg_rows", [(1536, 8), (1536, 64), (384, 64),
                                         (4000, 16)])
 def test_segmax_cm_wide_and_seg_rows_64_on_gpu(cuda, dtype, d, seg_rows):
-    """K4 past D=1024 (whole query tile while it fits; D=4000 stages it
-    in column chunks) and at seg_rows 64, against the plain version."""
+    """K4 past D=1024 (the query tile resident while it fits, else
+    streamed with the docs) and at seg_rows 64, against the plain
+    version."""
     rng = np.random.default_rng(d + seg_rows)
     n = 20_000 + 37
     docs_t = torch.from_numpy(_unit(rng, n, d).T.copy()).to(cuda, dtype)
@@ -632,3 +658,106 @@ def test_segmax_cm_wide_and_seg_rows_64_on_gpu(cuda, dtype, d, seg_rows):
             assert got.shape == ref.shape == (n_q, k4.n_segments(n, seg_rows))
             torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     assert k4.K4.launches == before + 4
+
+
+_K4_QS = (1, 7, 8, 9, 31, 33, 64, 65, 128)
+
+
+def _k4_inputs(d, n, n_q, dtype, seed, cols=None):
+    """Unit doc columns ``[d, cols or n]`` and queries ``[n_q, d]`` on the
+    card, made from ``seed``; columns 5000-5039 copy column 3."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    docs = torch.randn(d, cols or n, generator=g, device="cuda")
+    docs /= docs.norm(dim=0, keepdim=True).clamp_min(1e-12)
+    docs[:, 5000:5040] = docs[:, 3:4]
+    q = torch.randn(n_q, d, generator=g, device="cuda")
+    q /= q.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    return docs.to(dtype), q.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seg_rows", k4.SUPPORTED_SEG_ROWS)
+@pytest.mark.parametrize("d", [1, 100, 384, 1536, 4000])
+def test_segmax_cm_every_tile_and_plan_boundary_on_gpu(cuda, dtype, seg_rows, d):
+    """K4 against the plain version at every query-tile boundary (Q
+    1-128: one tile of 8-64, two of 64), every seg_rows, D from 1 to
+    4,000 (queries resident, and streamed with the docs), N not a
+    multiple of 128 and n_valid at N, in the middle of a group and of a
+    128-column tile, and inside the first group (the later groups are
+    wholly masked); each call launches the kernel once. At this N the
+    groups are too few to fill the card, so most shapes split each
+    group's members among blocks (an atomic max joins them); seg_rows 1
+    keeps whole groups."""
+    n = 20_000 + 37
+    group = seg_rows * 128
+    mid = min(n - 1, group + (seg_rows // 2) * 128 + 61)
+    docs_t, qs = _k4_inputs(d, n, max(_K4_QS), dtype, seed=d + seg_rows)
+    for n_q in _K4_QS:
+        q = qs[:n_q].contiguous()
+        for n_valid in (n, mid, 61):
+            before = k4.K4.launches
+            got = k4.segmax_cm(q, docs_t, n_valid, seg_rows)
+            ref = k4.segmax_cm_reference(q, docs_t, n_valid, seg_rows)
+            torch.cuda.synchronize()
+            assert k4.K4.launches == before + 1
+            assert got.shape == ref.shape == (n_q, k4.n_segments(n, seg_rows))
+            torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [100, 384])
+def test_segmax_cm_slice_and_unaligned_on_gpu(cuda, dtype, d):
+    """A column slice three columns into a matrix of odd row stride (the
+    docs not 16-byte aligned: loaded element by element) and queries
+    one element into their storage."""
+    n = 20_000 + 37
+    wide, qs = _k4_inputs(d, n, 66, dtype, seed=d, cols=n + 90)
+    docs_t = wide[:, 3:3 + n]
+    assert docs_t.stride(0) % 2 == 1 and docs_t.data_ptr() % 16 != 0
+    for n_q in (8, 33, 65):
+        flat = torch.empty(n_q * d + 1, dtype=dtype, device=cuda)
+        q = flat[1:].view(n_q, d)
+        q.copy_(qs[:n_q])
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+        for seg_rows in (1, 8, 64):
+            for n_valid in (n, n - 3001):
+                got = k4.segmax_cm(q, docs_t, n_valid, seg_rows)
+                ref = k4.segmax_cm_reference(q, docs_t, n_valid, seg_rows)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q", [8, 64])
+def test_twophase_duplicate_columns_tie_by_lowest_id_on_gpu(cuda, dtype, n_q):
+    """Identical doc columns score identically in K4's map, so
+    dense_topk_twophase on the card ranks a query's duplicates first, by
+    lowest id, as its plain path does."""
+    n = 20_000 + 37
+    docs_t, q = _k4_inputs(384, n, n_q, dtype, seed=n_q)
+    dups = [129, 3000, 9999, n - 2]
+    docs_t[:, dups] = docs_t[:, 7:8]
+    q[0] = docs_t[:, 7]
+    before = k4.K4.launches
+    _, ids = dense_topk_twophase(q, docs_t, 10, n_valid=n - 1)
+    torch.cuda.synchronize()
+    assert k4.K4.launches == before + 1
+    assert ids[0, :4].tolist() == [7, 129, 3000, 9999]
+    _, ref = dense_topk_twophase(q.cpu(), docs_t.cpu(), 10, n_valid=n - 1)
+    assert ref[0, :4].tolist() == [7, 129, 3000, 9999]
+
+
+@pytest.mark.gpu
+def test_segmax_cm_shared_memory_plan_matches_the_kernel(cuda):
+    """The wrapper's shared-memory sum is the kernel's own."""
+    lib = k4.K4.library()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in (1, 100, 384, 1536, 4000, 8192):
+            for qt in k4.QUERY_TILES:
+                for stream_q in (0, 1):
+                    assert lib.segmax_cm_smem_bytes(
+                        code, d, qt, stream_q) == k4.smem_bytes(
+                            dtype.itemsize, d, qt, bool(stream_q))
