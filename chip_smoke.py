@@ -63,7 +63,9 @@ Phases, one output line each:
    and X2's launches over that run;
 3. a synthetic store made from --seed (default 1,000,000 docs) with
    its PQ and IVF artifacts, saved with the port's VectorStore.save
-   under build/ and loaded back;
+   under build/ and loaded back, and its late-interaction slab (32
+   tokens a doc, float16, 24.6 GB at 1M docs) drawn on the card and
+   written once in row chunks, memory-mapped;
 4. the port's LegalEngine on the card behind the HTTP server: three
    POST /api/v1/query requests (victim narrative, procedural, heading)
    and one POST /api/v1/batch_search, each checked for its planted
@@ -73,15 +75,30 @@ Phases, one output line each:
 5. the same search_batch calls through a second engine on the CPU,
    equal to the card's under the tie-aware rule, the batches of 64 and
    68 included;
-6. the PQ + IVF engine behind the HTTP server (the same requests and
-   checks), then the int8 and the flat PQ engines through
-   search_batch, with K2's and K1-int8's launch counts over those runs;
+6. the PQ + IVF and the int8 engines behind the HTTP server (the same
+   requests and checks; each answers maxsim-rerank with a 422), then
+   the int8 and the flat PQ engines through search_batch, with K2's and
+   K1-int8's launch counts over those runs;
 7. each quantized tier's search_batch on the card equal to a CPU
    engine's under the tie-aware rule, and the int8 engine's weighted
-   results equal to the fp32 engine's.
+   results equal to the fp32 engine's;
+8. the late-interaction modes behind the HTTP server on the fp32
+   engine (the slab uploaded as bf16): POST /api/v1/batch_search of
+   the three PRIMARY queries, k=10, in maxsim-rerank and maxsim mode,
+   planted docs first; the full scan's top-10 equal to a float64
+   MaxSim brute force over the same bf16 slab, the rerank's to exact
+   MaxSim over the dense stage's own top-20 (tie-aware, 1e-5 a real
+   query token); K1 launched on every maxsim-rerank device search;
+   stage times, the scan's GB/s at the engine's block and at 512, and
+   its kernels by device time (torch.profiler); 8b the device postings
+   gather (PRIMARY and the victim's expansions) equal to the host
+   gather at the uncapped budget, both timed at the engine's budget;
+   8c the port's bench_maxsim_scale at its defaults (131,072 docs, 64
+   queries, Td=32).
 
 Then a JSON line with each kernel's launches, error, times and bound
-(K4 at fp32 Q=8 and at bench_scale's bf16 Q=64),
+(K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also on the
+maxsim-rerank path),
 and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the exit code is non-zero and that last line is not printed. No module
 of the JAX package (``legal_rag_tpu``) may be loaded by the end.
@@ -98,6 +115,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -154,6 +172,10 @@ X2_TOL = 1e-5       # X2 vs plain: fp32 sums of 384 exact bf16 products of
 EXPERIMENTS = ("exp_dense_roofline", "exp_twophase_stages",
                "exp_twophase_rowmajor", "exp_rm_stages",
                "exp_select_variants", "exp_member_topk")
+MV_TD = 32          # the token slab's budget (`build --multi-vector 32`)
+MAXSIM_TOL = 1e-5   # MaxSim vs float64: per real query token (one fp32
+                    # max of a 384-term sum of exact bf16 products)
+MAXSIM_REPS = 3     # timed batch_search calls a MaxSim mode
 # one H100 SXM, dense peak rates from NVIDIA's H100 data sheet
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12,
@@ -836,13 +858,22 @@ def phase_experiments(torch):
 
 
 def post(url: str, payload) -> dict:
+    status, body = post_status(url, payload)
+    check(status == 200, f"{url}: HTTP {status}: {body}")
+    return body
+
+
+def post_status(url: str, payload):
+    """``(HTTP status, JSON body)`` of a POST, error statuses included."""
     req = urllib.request.Request(
         url, data=json.dumps(payload).encode(),
         headers={"Content-Type": "application/json"}, method="POST",
     )
-    with urllib.request.urlopen(req, timeout=600) as r:
-        check(r.status == 200, f"{url}: HTTP {r.status}")
-        return json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
 def channel_scores(store, encoder, queries, cap, sparse_all_docs):
@@ -951,6 +982,11 @@ def assert_equal_under_ties(dev_rows, cpu_rows, channels, mode, weights,
 
 
 def phase_store(n_docs: int, seed: int, device: str):
+    """The synthetic store with its PQ/IVF artifacts and a token slab
+    of ``MV_TD`` tokens a doc. The slab is written once, in row chunks,
+    by ``synthesize_store`` into its own directory; the store saves and
+    loads without it (``save`` would write a second copy) and gets it
+    back memory-mapped, as ``VectorStore.load`` maps a store's slab."""
     from legal_rag_tpu_torch.index.store import VectorStore
     from legal_rag_tpu_torch.index.synthetic import synthesize_store
     from legal_rag_tpu_torch.retrieval.classifier import QueryClassifier
@@ -960,17 +996,23 @@ def phase_store(n_docs: int, seed: int, device: str):
     expansions = expansion_queries(QueryClassifier().classify(VICTIM))
     store = synthesize_store(
         n_docs, seed=seed, planted=PRIMARY, vocab_queries=expansions,
-        device=device,
+        device=device, multi_vector=MV_TD,
+        mv_dir=os.path.join(REPO_ROOT, "build", "smoke_mv"),
     )
+    slab = (store.mv_tokens, store.mv_mask)
+    store.mv_tokens = store.mv_mask = None
     store_dir = os.path.join(REPO_ROOT, "build", "smoke_store")
     store.save(store_dir)
     del store
     store = VectorStore.load(store_dir)
+    store.mv_tokens, store.mv_mask = slab
     print(f"phase 3 ok: {store.n_docs} docs, {len(store.bm25.doc_ids)} "
           f"postings, BM25 vocab {store.bm25.vocab_size}, mean length "
           f"{store.bm25.avgdl:.1f} tokens, WordPiece vocab "
-          f"{len(store.wp_vocab)}; built, saved and loaded in "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"{len(store.wp_vocab)}, token slab {list(store.mv_tokens.shape)} "
+          f"float16 ({store.mv_tokens.nbytes / 1e9:.2f} GB, mean "
+          f"{float(store.mv_mask.mean()) * MV_TD:.1f} real tokens a doc); "
+          f"built, saved and loaded in {time.time() - t0:.1f} s", flush=True)
     return store, expansions
 
 
@@ -1019,9 +1061,10 @@ def pq_ivf_config():
 
 def phase_serve(store, n_docs: int, device: str, config=None,
                 kernel: str = "K1", phase: int = 4):
-    """Drive the main path over HTTP; returns the engine and the launch
-    counts over exactly that run (``kernel`` must have launched at
-    least once per device search)."""
+    """Drive the main path over HTTP; returns the LegalEngine and the
+    launch counts over exactly that run (``kernel`` must have launched
+    at least once per device search). A quantized tier's server must
+    refuse maxsim-rerank with a 422."""
     import torch
 
     from legal_rag_tpu_torch.cli import BackgroundServer
@@ -1070,8 +1113,16 @@ def phase_serve(store, n_docs: int, device: str, config=None,
                 if device == "cuda":
                     torch.cuda.synchronize()
                 served[n] = (rows, read_counts())
+        refused = None
+        if engine.config.dense.dtype not in ("float32", "bfloat16"):
+            refused = post_status(f"{server.url}/api/v1/batch_search",
+                                  {"queries": [HEADING],
+                                   "fusion_mode": "maxsim-rerank"})
     finally:
         server.stop()
+    if refused is not None:
+        check(refused[0] == 422, f"maxsim-rerank on the {tier_name(engine)} "
+              f"tier answered {refused}, not 422")
     plant = planted_ids(n_docs, len(PRIMARY))
     for j, body in enumerate(answers):
         for key in ("answer", "sources", "context_used", "adapted", "disclaimer"):
@@ -1089,14 +1140,15 @@ def phase_serve(store, n_docs: int, device: str, config=None,
     stages = health["stage_latency"]
     check(health["engine_status"] == "ready" and "device_search" in stages,
           "health")
-    tier = engine.config.dense.dtype + (
-        " + IVF" if engine.index.ivf_centroids is not None else "")
+    tier = tier_name(engine)
     print(f"phase {phase} ok: {tier} engine: 3 /api/v1/query + 1 "
           f"/api/v1/batch_search answered 200 in {wall:.2f} s with planted "
           f"docs found; {dispatches} device searches, {kernel} launched "
           f"{counts[kernel]}x; cross-encoder scored "
           f"{n_ce} pools (rerank_score present); mean stage ms: "
-          + ", ".join(f"{k} {v['mean_ms']:.2f}" for k, v in stages.items()),
+          + ", ".join(f"{k} {v['mean_ms']:.2f}" for k, v in stages.items())
+          + ("" if refused is None else
+             "; maxsim-rerank refused with 422 (quantized tier)"),
           flush=True)
     if device == "cuda":
         check(counts[kernel] >= dispatches, f"{kernel} launched "
@@ -1112,7 +1164,12 @@ def phase_serve(store, n_docs: int, device: str, config=None,
               f"each; K1 launched {counts_n['K1']}x "
               f"({counts_n['K1 tensor cores']}x on the tensor cores)",
               flush=True)
-    return engine, counts, served
+    return legal, counts, served
+
+
+def tier_name(engine) -> str:
+    return engine.config.dense.dtype + (
+        " + IVF" if engine.index.ivf_centroids is not None else "")
 
 
 def phase_compare(store, engine, expansions, served=None):
@@ -1281,6 +1338,204 @@ def phase_compare_tiers(store, tier_engines, ivf_engine, fp32_engine,
           f"tie-aware rule ({swaps} ranks hold tied docs in another order); "
           f"int8 weighted (dense-only) ids equal the fp32 engine's",
           flush=True)
+
+
+def maxsim64(torch, q_tok, q_mask, mv, n_docs: int, block: int = 8192):
+    """float64 MaxSim ``[Q, n_docs]`` of bf16 query tokens over the
+    index's slab, blockwise on its device."""
+    qt = q_tok.to(torch.bfloat16).double()
+    real = (torch.as_tensor(q_mask, device=qt.device) > 0).double()
+    out = torch.empty((qt.shape[0], n_docs), dtype=torch.float64,
+                      device=qt.device)
+    for lo in range(0, n_docs, block):
+        hi = min(lo + block, n_docs)
+        sims = torch.einsum("qtd,bsd->qtbs", qt, mv.doc_tokens[lo:hi].double())
+        sims.masked_fill_(mv.doc_mask[lo:hi][None, None] <= 0, -math.inf)
+        best = sims.amax(dim=3)
+        best = torch.where(torch.isfinite(best), best, 0.0)
+        out[:, lo:hi] = (best * real[:, :, None]).sum(dim=1)
+    return out
+
+
+def phase_maxsim(store, legal, n_docs: int, device: str = "cuda"):
+    """The late-interaction modes behind the HTTP server on the fp32
+    engine: ``batch_search`` of the three PRIMARY queries (k=10) in
+    maxsim-rerank and maxsim mode, planted docs first; the full scan
+    equal to a float64 MaxSim brute force over the same bf16 slab, the
+    rerank equal to exact MaxSim over the dense stage's own top-C, K1
+    launched on every maxsim-rerank device search. Returns the launch
+    counts of the maxsim-rerank run and the phase's numbers."""
+    import torch
+
+    from legal_rag_tpu_torch.cli import BackgroundServer
+    from legal_rag_tpu_torch.index.synthetic import planted_ids
+    from legal_rag_tpu_torch.ops.maxsim import scan_block_n
+    from legal_rag_tpu_torch.parallel.sharded import _local_dense_topc
+    from legal_rag_tpu_torch.retrieval.engine import _pad_pow2
+    from legal_rag_tpu_torch.utils.timing import time_ms
+
+    t0 = time.time()
+    engine = legal.engine
+    mv = engine.mv_index
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t_upload = time.time() - t0
+    check(mv.doc_tokens.shape[0] == engine.index.docs.shape[0],
+          "slab and dense matrix padded differently")
+    k, queries = 10, list(PRIMARY)
+    server = BackgroundServer(legal)
+    rows, counts, stages = {}, {}, {}
+    try:
+        for mode in ("maxsim-rerank", "maxsim"):
+            payload = {"queries": queries, "k": k, "fusion_mode": mode}
+            post(f"{server.url}/api/v1/batch_search", payload)   # warm-up
+            engine.timer.reset()
+            reset_counts()
+            engine.device_dispatches = 0
+            for _ in range(MAXSIM_REPS):
+                rows[mode] = post(f"{server.url}/api/v1/batch_search",
+                                  payload)["results"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counts[mode] = (read_counts(), engine.device_dispatches)
+            stages[mode] = engine.timer.snapshot()
+    finally:
+        server.stop()
+    plant = planted_ids(n_docs, len(PRIMARY))
+    for mode, got in rows.items():
+        for j, row in enumerate(got):
+            check(len(row) == k and row[0]["doc_id"] == plant[j],
+                  f"{mode}: planted doc {plant[j]} not first for query {j}: "
+                  f"{[r['doc_id'] for r in row]}")
+    rerank_counts, dispatches = counts["maxsim-rerank"]
+    check(dispatches == MAXSIM_REPS, f"{dispatches} maxsim-rerank searches")
+    if device == "cuda":
+        check(rerank_counts["K1"] >= dispatches, f"K1 launched "
+              f"{rerank_counts['K1']}x for {dispatches} maxsim-rerank "
+              f"device searches")
+
+    # the references, from the engine's own query encoding
+    padded = queries + [""] * (_pad_pow2(len(queries)) - len(queries))
+    q_tok, q_mask, q_emb = engine._encode_query_tokens(padded)
+    nq = len(queries)
+    s64 = maxsim64(torch, q_tok[:nq], q_mask[:nq], mv, n_docs)
+    c = max(engine.config.fusion.candidate_multiplier * k, k)
+    _, cand = _local_dense_topc(q_emb, engine.index.docs, n_docs, c)
+    pool = torch.full_like(s64, -math.inf)
+    for qi in range(nq):
+        ids = cand[qi][(cand[qi] >= 0) & (cand[qi] < n_docs)]
+        pool[qi, ids] = s64[qi, ids]
+    for mode, want in (("maxsim", s64), ("maxsim-rerank", pool)):
+        for qi, row in enumerate(rows[mode]):
+            tol = MAXSIM_TOL * float(q_mask[qi].sum())
+            assert_topk_equiv_scores(
+                torch, want[qi:qi + 1], k,
+                torch.tensor([[r["score"] for r in row]], device=s64.device),
+                torch.tensor([[r["doc_id"] for r in row]], device=s64.device),
+                tol=tol)
+    # the engine's scan alone, at its block and at the JAX default 512
+    block = scan_block_n(*q_mask.shape, mv.doc_tokens.shape[1])
+    scan = {}
+    if device == "cuda":
+        for b in (block, 512):
+            scan[b] = time_ms(lambda: mv.search(q_tok, q_mask, k, block_n=b),
+                              iters=3, warmup=1)
+        profile = device_breakdown(
+            torch, lambda: mv.search(q_tok, q_mask, k, block_n=block))
+    slab_gb = mv.doc_tokens.numel() * mv.doc_tokens.element_size() / 1e9
+    return {
+        "counts": rerank_counts, "stages": stages, "slab_gb": slab_gb,
+        "block": block, "scan_ms": scan, "upload_s": t_upload,
+        "profile": profile if device == "cuda" else None,
+        "wall_s": time.time() - t0, "q": len(padded),
+        "tq": int(q_tok.shape[1]),
+    }
+
+
+def device_breakdown(torch, fn, top: int = 4):
+    """One call of ``fn`` under torch.profiler: ``(wall ms, device busy
+    ms, the ``top`` kernels by device ms)``; busy is None where the
+    profiler records no device time. Both are read with the profiler
+    on, which adds host cost to every launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            kernels.append((ev.key[:48], us / 1e3))
+    if not kernels:
+        return wall, None, []
+    kernels.sort(key=lambda kv: -kv[1])
+    return wall, sum(ms for _, ms in kernels), kernels[:top]
+
+
+def phase_gather(store, expansions, device: str = "cuda", reps: int = 3):
+    """The device postings gather on phase 3's postings (resident on the
+    device) against the host gather: equal, as postings multisets, for
+    every query at the uncapped budget (none overflows there); then both
+    timed at the engine's capped budget, in turns (host, device, device,
+    host), host clock ending in a synchronize, each including the move
+    of its batch to the device. Returns ``(ms by side, the capped and
+    the uncapped budget, queries)``."""
+    import torch
+
+    from legal_rag_tpu_torch.config import BM25Config
+    from legal_rag_tpu_torch.ops.sparse import bm25_gather_postings_device
+    from legal_rag_tpu_torch.retrieval.engine import _pad_pow2
+
+    bm = store.bm25
+    queries = list(PRIMARY) + list(expansions)
+    queries += [""] * (_pad_pow2(len(queries)) - len(queries))
+    full = _pad_pow2(bm.postings_budget(queries))
+    capped = _pad_pow2(bm.postings_budget(
+        queries, cap=BM25Config.postings_budget_cap))
+    post_ids = torch.from_numpy(bm.doc_ids).to(device)
+    post_w = torch.from_numpy(bm.weights).to(device)
+
+    def host(budget):
+        ids, w = bm.gather_postings(queries, budget)
+        return torch.from_numpy(ids).to(device), torch.from_numpy(w).to(device)
+
+    def dev(budget):
+        meta = (torch.from_numpy(m).to(device)
+                for m in bm.query_term_meta(queries))
+        return bm25_gather_postings_device(*meta, post_ids, post_w, budget)
+
+    h_ids, h_w = (x.cpu().numpy() for x in host(full))
+    d_ids, d_w = (x.cpu().numpy() for x in dev(full))
+    check(bool((bm.query_term_meta(queries)[1].sum(axis=1) <= full).all()),
+          "the uncapped budget overflows")
+    for qi, q in enumerate(queries):
+        keep_h, keep_d = h_ids[qi] < bm.n_docs, d_ids[qi] >= 0
+        check(sorted(zip(h_ids[qi][keep_h].tolist(), h_w[qi][keep_h].tolist()))
+              == sorted(zip(d_ids[qi][keep_d].tolist(),
+                            d_w[qi][keep_d].tolist())),
+              f"device gather != host gather for {q[:24]!r}")
+    times = {}
+    for name, fn in (("host", host), ("device", dev), ("device", dev),
+                     ("host", host)):
+        fn(capped)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(capped)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        times.setdefault(name, []).append(
+            (time.perf_counter() - t0) / reps * 1e3)
+    return times, capped, full, len(queries)
 
 
 def ptxas_registers(log: str) -> str:
@@ -1523,20 +1778,78 @@ def main() -> int:
           "store lacks its PQ/IVF artifacts")
 
     # -- 4. the port's main path: HTTP server over the engine on the card
-    engine, counts, served = phase_serve(store, args.docs, "cuda")
+    legal, counts, served = phase_serve(store, args.docs, "cuda")
+    engine = legal.engine
 
     # -- 5. the same searches through a second engine on the CPU
     phase_compare(store, engine, expansions, served)
 
-    # -- 6. the PQ + IVF engine over HTTP, then the int8 and flat PQ tiers
-    ivf_engine, ivf_counts, _ = phase_serve(store, args.docs, "cuda",
-                                         config=pq_ivf_config(), kernel="K2",
-                                         phase=6)
+    # -- 6. the PQ + IVF and int8 engines over HTTP (each refusing
+    # maxsim-rerank), then the int8 and flat PQ tiers
+    ivf_legal, ivf_counts, _ = phase_serve(store, args.docs, "cuda",
+                                           config=pq_ivf_config(), kernel="K2",
+                                           phase=6)
+    ivf_engine = ivf_legal.engine
     check(ivf_engine.index.ivf_centroids is not None, "PQ engine without IVF")
+    phase_serve(store, args.docs, "cuda", config=tier_config("int8"),
+                kernel="K1-int8", phase=6)
+    torch.cuda.empty_cache()
     tier_engines, tier_counts = phase_tiers(store, args.docs)
 
     # -- 7. each quantized tier on the card against the CPU
     phase_compare_tiers(store, tier_engines, ivf_engine, engine, expansions)
+
+    # -- 8. the late-interaction modes behind the HTTP server on the fp32
+    # engine, the device postings gather, bench_maxsim_scale
+    mx = phase_maxsim(store, legal, args.docs)
+    st = mx["stages"]
+    print(f"phase 8 ok: POST /api/v1/batch_search (3 PRIMARY queries, k=10, "
+          f"run at Q={mx['q']}, Tq={mx['tq']}) in maxsim-rerank and maxsim "
+          f"mode answered 200 with the planted docs first; full scan == "
+          f"float64 MaxSim over the bf16 slab and rerank == exact MaxSim "
+          f"over the dense stage's top-20, under the tie rule within "
+          f"{MAXSIM_TOL} x real tokens; K1 launched {mx['counts']['K1']}x "
+          f"over {MAXSIM_REPS} maxsim-rerank device searches; mean stage ms "
+          + "; ".join(f"{mode}: " + ", ".join(
+              f"{name} {v['mean_ms']:.3f}" for name, v in st[mode].items())
+              for mode in st)
+          + f"; slab {mx['slab_gb']:.2f} GB bf16 on the card (uploaded in "
+          f"{mx['upload_s']:.1f} s); the scan alone by CUDA events: " + ", ".join(
+              f"block {b} {ms:.3f} ms = {mx['slab_gb'] / ms * 1e3:.0f} GB/s of "
+              f"the slab ({mx['slab_gb'] / ms * 1e12 / HBM_BYTES_PER_S:.1%} of "
+              f"3.35 TB/s)" for b, ms in mx["scan_ms"].items())
+          + f" (the engine's block: {mx['block']}); phase wall "
+          f"{mx['wall_s']:.1f} s", flush=True)
+    wall, busy, top = mx["profile"]
+    print(f"phase 8 ok: the scan at block {mx['block']} under torch.profiler: "
+          f"wall {wall:.3f} ms, " + (
+              "no device time recorded" if busy is None else
+              f"device busy {busy:.3f} ms ({busy / wall:.1%}); largest "
+              "kernels " + "; ".join(f"{name} {ms:.3f} ms" for name, ms in top)),
+          flush=True)
+    gather_ms, capped, full, n_gq = phase_gather(store, expansions)
+    print(f"phase 8b ok: device postings gather of {n_gq} queries (PRIMARY, "
+          f"the victim's expansions, padding) == the host gather at the "
+          f"uncapped budget {full}; at the engine's budget {capped}, ms a "
+          f"batch (postings on the card; turns host, device, device, host):"
+          f" host gather + upload "
+          f"{' / '.join(f'{t:.3f}' for t in gather_ms['host'])}, device "
+          f"gather {' / '.join(f'{t:.3f}' for t in gather_ms['device'])}",
+          flush=True)
+    del engine._mv_index
+    torch.cuda.empty_cache()
+    from legal_rag_tpu_torch.scripts import bench_maxsim_scale
+
+    bms = bench_maxsim_scale.run(
+        log=lambda line: print(f"phase 8c: {line}", flush=True))
+    check(bms["top1"] >= 0.9, f"bench_maxsim_scale top-1 agreement "
+          f"{bms['top1']}")
+    torch.cuda.empty_cache()
+    print(f"phase 8c ok: bench_maxsim_scale at N={bms['n']}, Q={bms['q']}: "
+          f"full scan {bms['full_ms']:.3f} ms ({bms['slab_gbps']:.0f} GB/s, "
+          f"{bms['slab_share']:.1%} of 3.35 TB/s), rerank "
+          f"{bms['rerank_ms']:.3f} ms, top-1 agreement {bms['top1']}, top-10 "
+          f"overlap {bms['overlap']}", flush=True)
 
     check("jax" not in sys.modules, "the run imported jax")
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"
@@ -1550,6 +1863,7 @@ def main() -> int:
     k3_t, k4_t = times_k3[("fp32", N_K3[2], 8, 10)], times_k4[("fp32", 8, 8)]
     # K4 at bench_scale's batch: bf16, 64 queries
     k4_64 = times_k4[("bf16", 64, 8)]
+    n_rows = engine.index.docs.shape[0]     # the maxsim-rerank dense stage
     rows = [
         ("segmax_rm (K1)", "segmax_rm.cu", "legal_rag_tpu/ops/dense.py:495",
          counts["K1"], max_err, k1_t["k1_ms"], k1_t["plain_ms"],
@@ -1566,6 +1880,12 @@ def main() -> int:
          max_err, k1_128["k1_ms"], k1_128["plain_ms"],
          bound(N_ROWS * DIM * 4 + 128 * DIM * 4 + 128 * N_ROWS // 8 * 4,
                3 * 2 * 128 * N_ROWS * DIM, "tf32"), None),
+        # the maxsim-rerank dense stage: the same fp32 Q=8 launches
+        ("segmax_rm (K1, maxsim-rerank)", "segmax_rm.cu",
+         "legal_rag_tpu/ops/dense.py:495", mx["counts"]["K1"], max_err,
+         k1_t["k1_ms"], k1_t["plain_ms"],
+         bound(n_rows * DIM * 4 + 8 * DIM * 4 + 8 * n_rows // 8 * 4,
+               2 * 8 * n_rows * DIM, "fp32"), None),
         ("segmax_rm int8 (K1-int8)", "segmax_rm.cu",
          "legal_rag_tpu/ops/dense.py:515", tier_counts["int8"]["K1-int8"],
          err_i8, k1_i8_t["k1_ms"], k1_i8_t["plain_ms"],

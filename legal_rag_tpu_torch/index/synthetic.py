@@ -16,11 +16,20 @@ embedding widths that divide by the 96 nibble subspaces, as MiniLM's
 For each query in ``planted`` one doc is planted: its embedding is the
 encoder's embedding of that query and its text repeats the query's
 words, so hybrid search must rank it first on both channels.
+
+With ``multi_vector=Td`` the store also carries the late-interaction
+slab of ``build --multi-vector Td`` (``mv_tokens.npy`` float16,
+``mv_mask.npy`` uint8): a doc's tokens are its unit embedding plus
+0.25 N(0, 1) noise, normalized, as many as its BM25 length up to Td (the
+data of ``scripts/bench_maxsim_scale.py``); a planted doc's tokens are
+the encoder's token states of its query, so both MaxSim modes rank it
+first.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -191,6 +200,8 @@ def synthesize_store(
     cfg: Optional[EncoderConfig] = None,
     vocab_size: int = 50_000,
     device="cuda",
+    multi_vector: int = 0,
+    mv_dir=None,
 ) -> VectorStore:
     """A store of ``n_docs`` synthetic chunks (see module doc).
 
@@ -198,7 +209,9 @@ def synthesize_store(
     ``planted_ids(n_docs, len(planted))``. ``vocab_queries``: further
     queries whose words must be in the BM25 vocabulary. ``device``
     runs the port's encoder for the planted embeddings and the PQ/IVF
-    training.
+    training, and draws the token slab. ``multi_vector``: the slab's
+    token budget Td (0: no slab); the slab is written in row chunks
+    into ``mv_dir`` and returned memory-mapped from there.
     """
     from legal_rag_tpu_torch.models.encoder import SentenceEncoder
     from legal_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
@@ -259,12 +272,20 @@ def synthesize_store(
 
     emb = rng.standard_normal((n_docs, cfg.hidden), dtype=np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    encoder = None
     if len(planted):
         encoder = SentenceEncoder(
             cfg=cfg, params=enc_params,
             tokenizer=WordPieceTokenizer(wp_vocab), device=device,
         )
         emb[plant_at] = encoder.encode(list(planted))
+    mv = {}
+    if multi_vector:
+        if mv_dir is None:
+            raise ValueError("multi_vector needs mv_dir, the directory "
+                             "the token slab is written to")
+        mv = _token_slab(emb, lengths, multi_vector, mv_dir, seed, device,
+                        plant_at, planted, encoder)
 
     # the capacity tier's artifacts, as `build --pq-m --ivf-cell-size`
     # makes them (OPQ on, 8 rounds)
@@ -297,9 +318,62 @@ def synthesize_store(
         ce_alpha=CE_ALPHA,
         build_params={"synthetic": {"n_docs": n_docs, "seed": seed},
                       **({"pq_m": PQ_M, "ivf_cell_size": IVF_CELL_SIZE}
-                         if pq else {})},
+                         if pq else {}),
+                      **({"multi_vector": multi_vector} if mv else {})},
         **pq,
+        **mv,
     )
+
+
+def _token_slab(emb, lengths, td: int, mv_dir, seed: int, device,
+               plant_at=(), planted=(), encoder=None) -> Dict:
+    """The late-interaction slab of the module doc, drawn on ``device``
+    from a seeded generator and written through
+    ``np.lib.format.open_memmap`` into ``mv_dir`` in chunks of 16,384
+    docs; returns ``{"mv_tokens", "mv_mask"}`` memory-mapped."""
+    import torch
+
+    from legal_rag_tpu_torch.ops.maxsim import minilm_token_embeddings
+
+    n, d = emb.shape
+    os.makedirs(mv_dir, exist_ok=True)
+    tok_path = os.path.join(mv_dir, "mv_tokens.npy")
+    mask_path = os.path.join(mv_dir, "mv_mask.npy")
+    counts = np.minimum(lengths, td)
+    plant_tok = []
+    if len(planted):
+        ids, am = encoder.tokenizer.encode_batch(
+            list(planted), max_len=min(encoder.cfg.max_len, td))
+        with torch.inference_mode():
+            states = minilm_token_embeddings(
+                encoder.model, torch.from_numpy(ids).to(encoder.device),
+                torch.from_numpy(am).to(encoder.device),
+            ).cpu().numpy()
+        for doc, row, m in zip(plant_at, states, am):
+            counts[doc] = int(m.sum())
+            plant_tok.append((doc, row[m > 0]))
+    mask = (np.arange(td)[None, :] < counts[:, None]).astype(np.uint8)
+    np.save(mask_path, mask)
+
+    toks = np.lib.format.open_memmap(tok_path, mode="w+", dtype=np.float16,
+                                     shape=(n, td, d))
+    g = torch.Generator(device=device).manual_seed(seed)
+    step = 16384
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        e = torch.from_numpy(emb[lo:hi]).to(device)
+        t = e[:, None, :] + 0.25 * torch.randn(
+            (hi - lo, td, d), generator=g, device=device)
+        t /= t.norm(dim=2, keepdim=True)
+        t *= torch.from_numpy(mask[lo:hi]).to(device)[:, :, None]
+        toks[lo:hi] = t.half().cpu().numpy()
+    for doc, rows in plant_tok:
+        toks[doc] = 0
+        toks[doc, : len(rows)] = rows
+    toks.flush()
+    del toks
+    return {"mv_tokens": np.load(tok_path, mmap_mode="r"),
+            "mv_mask": np.load(mask_path, mmap_mode="r")}
 
 
 def planted_ids(n_docs: int, n_planted: int) -> List[int]:

@@ -130,7 +130,14 @@ def minilm_encode(
     attention_mask: torch.Tensor,
 ) -> torch.Tensor:
     """Sentence embeddings ``[B, H]``: masked mean pool, then L2."""
-    hidden = minilm_hidden_states(model, input_ids, attention_mask)
+    return mean_pool(
+        minilm_hidden_states(model, input_ids, attention_mask), attention_mask
+    )
+
+
+def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """``[B, L, H]`` hidden states -> ``[B, H]``: the mean over real
+    tokens, L2-normalized."""
     mask = attention_mask.float()[:, :, None]
     pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1e-9)
     norm = torch.sqrt((pooled * pooled).sum(dim=-1, keepdim=True))

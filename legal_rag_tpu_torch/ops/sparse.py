@@ -2,9 +2,16 @@
 
 The host side (``tokenize``, :class:`BM25Index`, :func:`build_bm25`) is
 the JAX package's code verbatim: the index is plain numpy and the
-postings gather runs on the host. The device side is
-:func:`bm25_score_batch`, a batched scatter-add of the ``[Q, P]``
-postings into a ``[Q, N]`` score accumulator.
+serving path gathers postings on the host. The device side:
+
+- :func:`bm25_gather_postings_device`, the ``[Q, P]`` postings batch
+  built on the device from postings resident there and the host's
+  ``[Q, T]`` term metadata (``BM25Index.query_term_meta``); ``ops`` API
+  only, as in the JAX package: the engine keeps the host gather, whose
+  budget truncation keeps the heaviest postings where this one keeps
+  the first in term order;
+- :func:`bm25_score_batch`, a batched scatter-add of the postings into
+  a ``[Q, N]`` score accumulator, and :func:`bm25_topk` over it.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from legal_rag_tpu_torch.ops.dense import lax_top_k
 
 
 def tokenize(text: str) -> List[str]:
@@ -237,3 +246,50 @@ def bm25_score_batch(
     )
     scores.scatter_add_(1, post_ids, post_w.float())
     return scores[:, :n_docs]
+
+
+def bm25_gather_postings_device(
+    starts: torch.Tensor,    # [Q, T] CSR row starts per query term
+    lens: torch.Tensor,      # [Q, T] postings lengths
+    counts: torch.Tensor,    # [Q, T] query-term multiplicities
+    doc_ids: torch.Tensor,   # [nnz] int32, device-resident postings
+    weights: torch.Tensor,   # [nnz] float32
+    budget: int,             # output width P
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Build the ``[Q, P]`` (doc_id int32, weight fp32) postings batch
+    on the device. Output slot ``p`` belongs to the term whose output
+    range covers it (a segmented iota: ``start[term] + p -
+    out_offset[term]``), so the postings move by two gathers and no
+    scatter.
+
+    Slots past a query's postings are ``(-1, 0.0)``; postings past the
+    budget drop in term order.
+    """
+    starts, lens = starts.long(), lens.long()
+    t = starts.shape[1]
+    out_offs = torch.cumsum(lens, dim=1) - lens           # exclusive [Q, T]
+    total = lens.sum(dim=1)                               # [Q]
+    p = torch.arange(budget, device=starts.device).expand(starts.shape[0], -1)
+    # the term owning slot p: (terms with out_offset <= p) - 1
+    term_idx = torch.searchsorted(out_offs.contiguous(), p.contiguous(),
+                                  right=True) - 1
+    term_idx = term_idx.clamp(0, t - 1)
+
+    def take(m):
+        return torch.gather(m, 1, term_idx)
+
+    within = p - take(out_offs)
+    valid = (p < total[:, None]) & (within < take(lens))
+    idx = torch.where(valid, take(starts) + within, 0)
+    post_ids = torch.where(valid, doc_ids[idx], -1)
+    post_w = torch.where(valid, weights[idx] * take(counts.float()), 0.0)
+    return post_ids.int(), post_w
+
+
+def bm25_topk(
+    post_ids: torch.Tensor, post_w: torch.Tensor, n_docs: int, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter-add scoring and top-k: ``(scores [Q, k], ids [Q, k]
+    int32)``, scores descending, ties to the lowest doc id."""
+    top_s, top_i = lax_top_k(bm25_score_batch(post_ids, post_w, n_docs), k)
+    return top_s, top_i.int()

@@ -15,7 +15,15 @@ The dense stage follows the doc matrix's storage tier:
 - pq (uint8 codes): :func:`legal_rag_tpu_torch.ops.pq.pq_topk` (kernel
   K2), or its IVF-pruned form when the index carries IVF cells.
 
-Sharding over several devices is queued in ROADMAP.md (P13).
+The late-interaction tier (:class:`ShardedMultiVectorIndex`) keeps the
+``[Npad, Td, D]`` token slab beside the dense index:
+:func:`sharded_maxsim_topk` scans it whole, and
+:func:`sharded_maxsim_rerank_topk` late-interacts only the dense stage's
+top-C candidates (K1 at large N, through :func:`_local_dense_topc`).
+
+Sharding over several devices is queued in ROADMAP.md (P13); at one
+shard each reference function's cross-shard merge is its final
+two-key sort.
 """
 
 from __future__ import annotations
@@ -29,9 +37,10 @@ import torch
 from legal_rag_tpu_torch.ops.dense import (
     LARGE_N_THRESHOLD, TWOPHASE_BLOCK_N, TWOPHASE_MIN_DOCS,
     TWOPHASE_SEG_ROWS, _SCORE_MATRIX_BUDGET_BYTES, dense_topk_twophase_rm,
-    lax_top_k, matmul_scores, quantize_queries,
+    lax_top_k, matmul_scores, quantize_queries, sort_score_desc_id_asc,
 )
 from legal_rag_tpu_torch.ops.fusion import rrf_fusion
+from legal_rag_tpu_torch.ops.maxsim import maxsim_rescore, maxsim_topk
 from legal_rag_tpu_torch.ops.sparse import bm25_score_batch
 
 _NEG_INF = float("-inf")
@@ -411,3 +420,160 @@ def hybrid_search(
         rrf_k=rrf_k, n_valid=n_docs,
     )
     return f, ids, torch.zeros_like(f), torch.zeros_like(f)
+
+
+def _merge_topk(s: torch.Tensor, i: torch.Tensor, k: int, n_docs: int):
+    """One shard's ``[Q, k']`` MaxSim winners as the reference's merge
+    leaves them: non-finite slots become ``(-inf, -1)``, the list pads
+    to ``k`` and sorts by (score desc, id asc), ids past the corpus -1."""
+    bad = (i < 0) | ~torch.isfinite(s)
+    gids = torch.where(bad, -1, i.long())
+    s, gids = _pad_candidates(torch.where(bad, _NEG_INF, s), gids, k)
+    slot = torch.arange(k, device=s.device)
+    sort_ids = torch.where(gids < 0, n_docs + slot, gids)
+    out_s, out_i = sort_score_desc_id_asc(s, sort_ids)
+    return out_s, torch.where(out_i >= n_docs, -1, out_i).int()
+
+
+def sharded_maxsim_topk(
+    doc_tokens: torch.Tensor,   # [Npad, Td, D]
+    doc_mask: torch.Tensor,     # [Npad, Td]
+    q_tokens: torch.Tensor,     # [Q, Tq, D]
+    q_mask: torch.Tensor,       # [Q, Tq]
+    *,
+    k: int,
+    n_docs: int,
+    block_n: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Late-interaction (MaxSim) top-k over the whole token slab, rows
+    past ``n_docs`` masked. Returns ``(scores [Q, k] fp32, ids [Q, k]
+    int32)``, (score desc, id asc); slots beyond the corpus carry
+    ``(-inf, -1)``."""
+    n_pad = doc_tokens.shape[0]
+    s, i = maxsim_topk(
+        q_tokens, q_mask, doc_tokens, doc_mask, min(k, n_pad),
+        block_n=block_n, n_valid=min(max(n_docs, 0), n_pad),
+    )
+    return _merge_topk(s, i, k, n_docs)
+
+
+def sharded_maxsim_rerank_topk(
+    docs: torch.Tensor,         # [Npad, D] single-vector matrix
+    doc_tokens: torch.Tensor,   # [Npad, Td, D] token slab
+    doc_mask: torch.Tensor,     # [Npad, Td]
+    q_emb: torch.Tensor,        # [Q, D] sentence embeddings
+    q_tokens: torch.Tensor,     # [Q, Tq, D] query token embeddings
+    q_mask: torch.Tensor,       # [Q, Tq]
+    *,
+    k: int,
+    c: int,
+    n_docs: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense-first late interaction, the capacity-safe MaxSim tier: the
+    single-vector dense stage takes each query's top-``c``
+    (:func:`_local_dense_topc`: K1's two-phase search at large N), and
+    MaxSim rescores only those candidates against the slab
+    (:func:`legal_rag_tpu_torch.ops.maxsim.maxsim_rescore`), so a batch
+    reads ``O(c * Td * D)`` of the slab instead of all of it. Recall
+    then rests on the dense stage covering the MaxSim winners.
+
+    Returns ``(scores [Q, k] fp32, ids [Q, k] int32)``, (score desc, id
+    asc), ``(-inf, -1)`` beyond the corpus.
+    """
+    n_pad = docs.shape[0]
+    if doc_tokens.shape[0] != n_pad or doc_mask.shape[0] != n_pad:
+        # a mismatch rescores another document's tokens, so this is a
+        # hard error, not an assert that -O strips
+        raise ValueError(
+            "dense tier and token slab must share row padding: docs "
+            f"{n_pad} vs doc_tokens {doc_tokens.shape[0]} / doc_mask "
+            f"{doc_mask.shape[0]}; build the slab with n_pad=docs.shape[0]"
+        )
+    cl = min(c, n_pad)
+    kl = min(k, cl)
+    n_valid = min(max(n_docs, 0), n_pad)
+    _, d_i = _local_dense_topc(q_emb, docs, n_docs, cl)
+    s, i = maxsim_rescore(q_tokens, q_mask, doc_tokens, doc_mask, d_i, kl,
+                          n_valid=n_valid)
+    return _merge_topk(s, i, k, n_docs)
+
+
+@dataclasses.dataclass
+class ShardedMultiVectorIndex:
+    """The device-resident token slab for late-interaction search: the
+    multi-vector analogue of :class:`ShardedIndex`. Storage defaults to
+    bfloat16 (at Td=32 a bf16 slab is 16x the fp32 single-vector
+    matrix)."""
+
+    doc_tokens: torch.Tensor   # [Npad, Td, D]
+    doc_mask: torch.Tensor     # [Npad, Td] int32
+    n_docs: int
+
+    @classmethod
+    def from_arrays(
+        cls,
+        tokens: np.ndarray,      # [N, Td, D] float (any precision; may be
+                                 # a memory map)
+        mask: np.ndarray,        # [N, Td]
+        dtype: str = "bfloat16",
+        n_pad: Optional[int] = None,
+        device="cuda",
+    ) -> "ShardedMultiVectorIndex":
+        """``n_pad``: callers serving maxsim-rerank pass the dense
+        index's padded row count, so a doc id names the same row in
+        both. The slab is allocated at the target dtype on ``device``
+        and filled in row chunks of ~256 MB of source, converted there:
+        no transient fp32 (or host) copy of the whole slab."""
+        n, td, d = tokens.shape
+        n_pad = n if n_pad is None else int(n_pad)
+        if n_pad < n:
+            raise ValueError(f"n_pad {n_pad} must be at least N={n}")
+        target = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        toks = torch.zeros((n_pad, td, d), dtype=target, device=device)
+        step = max(1, (1 << 28) // max(1, td * d * tokens.itemsize))
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            # a copy: a memory-mapped store's slab is read-only
+            chunk = torch.from_numpy(np.array(tokens[lo:hi]))
+            toks[lo:hi] = chunk.to(device).to(target)
+        mpad = torch.zeros((n_pad, td), dtype=torch.int32, device=device)
+        mpad[:n] = torch.from_numpy(np.asarray(mask, dtype=np.int32)).to(device)
+        return cls(doc_tokens=toks, doc_mask=mpad, n_docs=n)
+
+    def search(
+        self, q_tokens, q_mask, k: int, block_n: int = 512
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = self.doc_tokens.device
+        return sharded_maxsim_topk(
+            self.doc_tokens, self.doc_mask,
+            torch.as_tensor(q_tokens).to(dev, self.doc_tokens.dtype),
+            torch.as_tensor(q_mask).to(dev),
+            k=min(k, self.n_docs), n_docs=self.n_docs, block_n=block_n,
+        )
+
+    def rerank_search(
+        self, index: "ShardedIndex", q_emb, q_tokens, q_mask, k: int, c: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dense-first MaxSim: candidates from ``index``'s float tier,
+        late interaction on those only (:func:`sharded_maxsim_rerank_topk`)."""
+        if index.docs.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                "maxsim-rerank needs a float/bf16 dense tier for the "
+                f"candidate stage (got {index.docs.dtype}); serve the "
+                "quantized tiers with mode='maxsim' or 'weighted'"
+            )
+        if index.docs.shape[0] != self.doc_tokens.shape[0]:
+            raise ValueError(
+                "single-vector matrix and token slab must share row "
+                f"padding ({index.docs.shape[0]} vs "
+                f"{self.doc_tokens.shape[0]}); build the slab with "
+                "n_pad=index.docs.shape[0]"
+            )
+        dev = self.doc_tokens.device
+        return sharded_maxsim_rerank_topk(
+            index.docs, self.doc_tokens, self.doc_mask,
+            torch.as_tensor(q_emb).to(dev, index.docs.dtype),
+            torch.as_tensor(q_tokens).to(dev, self.doc_tokens.dtype),
+            torch.as_tensor(q_mask).to(dev),
+            k=min(k, self.n_docs), c=c, n_docs=self.n_docs,
+        )

@@ -12,8 +12,11 @@ IVF cells and ``dense.use_ivf`` is set). The int8 and pq tiers
 oversample their candidates and, in weighted mode, rescore them exactly
 in fp32 on the host (``exact_rescore``), as the JAX engine does.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
-item): the maxsim modes.
+The late-interaction modes run over the store's token slab
+(``mv_tokens.npy``, from ``build --multi-vector``), uploaded on first
+use: ``"maxsim"`` scans the whole slab, ``"maxsim-rerank"`` rescores
+the float dense tier's top-C candidates
+(:class:`legal_rag_tpu_torch.parallel.sharded.ShardedMultiVectorIndex`).
 """
 
 from __future__ import annotations
@@ -31,7 +34,12 @@ from legal_rag_tpu_torch.index.store import VectorStore
 from legal_rag_tpu_torch.models.encoder import SentenceEncoder
 from legal_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
 from legal_rag_tpu_torch.ops.dense import exact_rescore
-from legal_rag_tpu_torch.parallel.sharded import ShardedIndex, hybrid_search
+from legal_rag_tpu_torch.ops.maxsim import (
+    minilm_token_and_pooled, scan_block_n,
+)
+from legal_rag_tpu_torch.parallel.sharded import (
+    ShardedIndex, ShardedMultiVectorIndex, hybrid_search,
+)
 
 logger = logging.getLogger("LegalRAG-RetrievalEngine")
 
@@ -181,10 +189,6 @@ class RetrievalEngine:
         hybrid_weights: Sequence[float],
         mode: str,
     ) -> List[List[SearchResult]]:
-        if mode in ("maxsim", "maxsim-rerank"):
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP.md queue 1, P10)"
-            )
         self.device_dispatches = getattr(self, "device_dispatches", 0) + 1
         cfg = self.config
         n_real = len(queries)
@@ -212,6 +216,27 @@ class RetrievalEngine:
         q_pad = _pad_pow2(n_real)
         queries = list(queries) + [""] * (q_pad - n_real)
         hybrid_weights = list(hybrid_weights) + [0.0] * (q_pad - n_real)
+
+        if mode in ("maxsim", "maxsim-rerank"):
+            # late interaction over the [N, Td, D] token slab, no sparse
+            # side: "maxsim" scans the whole slab; "maxsim-rerank" runs
+            # the single-vector dense stage first and late-interacts its
+            # top-C candidates only
+            mv = self.mv_index     # raises early when artifacts are absent
+            with self.timer.stage("encode"):
+                q_tok, q_mask, q_emb = self._encode_query_tokens(queries)
+            with self.timer.stage("device_search"):
+                if mode == "maxsim":
+                    s, i = mv.search(q_tok, q_mask, k, block_n=scan_block_n(
+                        *q_mask.shape, mv.doc_tokens.shape[1]))
+                else:
+                    s, i = mv.rerank_search(
+                        self.index, q_emb, q_tok, q_mask, k,
+                        c=max(cfg.fusion.candidate_multiplier * k, k),
+                    )
+                scores, ids = s.cpu().numpy(), i.cpu().numpy()
+            sem, key = scores, np.zeros_like(scores)
+            return self._assemble_results(n_real, k, scores, ids, sem, key)
 
         with self.timer.stage("encode"):
             q_emb = self.encoder.encode(queries)
@@ -292,6 +317,53 @@ class RetrievalEngine:
                 )
             out.append(row)
         return out
+
+    # -- late-interaction (multi-vector) tier --------------------------------
+
+    @property
+    def mv_index(self) -> ShardedMultiVectorIndex:
+        """The token slab on the engine's device, uploaded on first use
+        (it is Td times the embedding matrix; only maxsim callers pay)."""
+        if self.store.mv_tokens is None:
+            raise ValueError(
+                "store has no multi-vector artifacts; rebuild with "
+                "`build --multi-vector <token_budget>`"
+            )
+        mv = getattr(self, "_mv_index", None)
+        if mv is None:
+            # the dense tier's row padding, so a candidate id names the
+            # same row in both; only for the float tiers that
+            # rerank_search accepts (a quantized tier's rows are codes,
+            # IVF-reordered and padded to whole cells)
+            n_pad = None
+            if self.index.docs.dtype in (torch.float32, torch.bfloat16):
+                n_pad = int(self.index.docs.shape[0])
+            mv = ShardedMultiVectorIndex.from_arrays(
+                self.store.mv_tokens, self.store.mv_mask, n_pad=n_pad,
+                device=self.device,
+            )
+            self._mv_index = mv
+        return mv
+
+    def _encode_query_tokens(self, queries: Sequence[str]):
+        """The query's token embeddings (the slab's encoder and token
+        budget) and, from the same forward, its pooled sentence
+        embedding for maxsim-rerank's dense stage. The pooled view
+        means over the Td-truncated tokens, so for a query longer than
+        Td it differs slightly from ``SentenceEncoder.encode``'s, as in
+        the JAX engine. Returns ``(tokens [Q, Tq, D], mask [Q, Tq] numpy,
+        pooled [Q, D])``, the tensors on the engine's device."""
+        td = int(self.store.mv_tokens.shape[1])
+        ids, am = self.encoder.tokenizer.encode_batch(
+            list(queries), max_len=min(self.encoder.cfg.max_len, td)
+        )
+        dev = self.device
+        with torch.inference_mode():
+            q_tok, q_emb = minilm_token_and_pooled(
+                self.encoder.model, torch.from_numpy(ids).to(dev),
+                torch.from_numpy(am).to(dev),
+            )
+        return q_tok, am, q_emb
 
     # -- reference-compatible API --------------------------------------------
 

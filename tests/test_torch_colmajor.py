@@ -468,6 +468,9 @@ def test_ops_exports_the_dense_backends():
     assert set(tops.__all__) == {
         "l2_normalize", "dense_topk", "dense_topk_matmul", "dense_topk_fused",
         "dense_topk_twophase", "dense_topk_twophase_rm",
+        # the rest of the reference's ops API
+        "BM25Index", "build_bm25", "bm25_score_batch", "bm25_topk",
+        "MultiVectorIndex", "maxsim_topk", "weighted_fusion", "rrf_fusion",
     }
     assert tops.dense_topk_fused is dense_topk_fused
 

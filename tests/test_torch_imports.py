@@ -49,6 +49,8 @@ NAMED_MODULES = [
     "legal_rag_tpu_torch.ops.fused_topk",
     "legal_rag_tpu_torch.ops.argmax_probe",
     "legal_rag_tpu_torch.scripts.bench_scale",
+    "legal_rag_tpu_torch.ops.maxsim",
+    "legal_rag_tpu_torch.scripts.bench_maxsim_scale",
     "legal_rag_tpu_torch.config",
     "legal_rag_tpu_torch.utils.timing",
     "legal_rag_tpu_torch.server.app",
@@ -173,9 +175,13 @@ def _entry_points():
     from legal_rag_tpu_torch.index.synthetic import synthesize_store
     from legal_rag_tpu_torch.models.encoder import SentenceEncoder
     from legal_rag_tpu_torch.ops import pq
-    from legal_rag_tpu_torch.parallel.sharded import ShardedIndex
+    from legal_rag_tpu_torch.ops.maxsim import MultiVectorIndex
+    from legal_rag_tpu_torch.parallel.sharded import (
+        ShardedIndex, ShardedMultiVectorIndex,
+    )
     from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
     from legal_rag_tpu_torch.retrieval.facade import LegalEngine
+    from legal_rag_tpu_torch.scripts import bench_maxsim_scale
 
     return {
         "RetrievalEngine": RetrievalEngine, "LegalEngine": LegalEngine,
@@ -186,6 +192,11 @@ def _entry_points():
         "synthesize_store": synthesize_store,
         "_train_pq_sample": pq._train_pq_sample, "train_pq": pq.train_pq,
         "encode_pq": pq.encode_pq, "build_ivf": pq.build_ivf,
+        "MultiVectorIndex.from_token_embeddings":
+            MultiVectorIndex.from_token_embeddings,
+        "ShardedMultiVectorIndex.from_arrays":
+            ShardedMultiVectorIndex.from_arrays,
+        "bench_maxsim_scale.run": bench_maxsim_scale.run,
     }
 
 
@@ -194,6 +205,8 @@ def _entry_points():
     "ShardedIndex.from_pq_ivf", "ShardedIndex.from_pq",
     "ShardedIndex.from_embeddings", "synthesize_store", "_train_pq_sample",
     "train_pq", "encode_pq", "build_ivf",
+    "MultiVectorIndex.from_token_embeddings",
+    "ShardedMultiVectorIndex.from_arrays", "bench_maxsim_scale.run",
 ])
 def test_entry_point_defaults_to_the_card(name):
     """A missing card fails loudly; the work never moves to the CPU
