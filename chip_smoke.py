@@ -94,7 +94,19 @@ Phases, one output line each:
    gather (PRIMARY and the victim's expansions) equal to the host
    gather at the uncapped budget, both timed at the engine's budget;
    8c the port's bench_maxsim_scale at its defaults (131,072 docs, 64
-   queries, Td=32).
+   queries, Td=32);
+9. the build path: a markdown corpus of the five laws (2,620 chunks,
+   ingest.synthetic), ``ingest`` and ``build --finetune-steps 300
+   --finetune-token-weight 0.5 --pq-m 48 --ivf-cell-size 256
+   --rerank-steps 300 --multi-vector 32`` through the port's command
+   line on the card (losses falling, the gate's verdict and alpha, the
+   stage times), the store served by ``python -m legal_rag_tpu_torch
+   serve`` in a process of its own, each of three titles' own chunks in
+   its /api/v1/query context and its batch_search top 10; an untrained
+   256-chunk build on the card equal to the CPU's (embeddings within
+   1e-5, BM25 and corpus_hash equal); the encode throughput over 65,536
+   chunks at batches 64 and 512 beside the fp32 FLOP bound, and the
+   fine-tune and CE steps' ms.
 
 Then a JSON line with each kernel's launches, error, times and bound
 (K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also on the
@@ -1538,6 +1550,349 @@ def phase_gather(store, expansions, device: str = "cuda", reps: int = 3):
     return times, capped, full, len(queries)
 
 
+BUILD_CHUNKS = 2620  # the serving corpus's chunk count
+BUILD_ARGS = ("--finetune-steps", "300", "--finetune-token-weight", "0.5",
+              "--pq-m", "48", "--ivf-cell-size", "256", "--rerank-steps",
+              "300", "--multi-vector", "32")     # flag, value pairs
+BUILD_SUBSET = 256      # chunks of the untrained card-vs-CPU build
+ENCODE_DOCS = 65_536    # the encode throughput's corpus
+ENCODE_BATCHES = (64, 512)
+EMB_TOL = 1e-5          # card vs CPU embeddings: fp32 sums in another order
+
+
+def minilm_flops(cfg, lengths, train: bool = False) -> float:
+    """Matmul FLOPs of MiniLM forwards over sequences of ``lengths``
+    tokens: per layer 8 L H^2 (projections) + 4 L H I (feed-forward) +
+    4 L^2 H (scores and context); a training step adds the backward's
+    two products per forward product."""
+    h, i = cfg.hidden, cfg.intermediate
+    total = sum(8 * n * h * h + 4 * n * h * i + 4 * n * n * h
+                for n in lengths) * cfg.layers
+    return 3.0 * total if train else float(total)
+
+
+def _run_cli(argv) -> str:
+    """``legal_rag_tpu_torch.cli.main(argv)`` in this process; returns
+    what it printed."""
+    import contextlib
+    import io
+
+    from legal_rag_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(list(argv))
+    check(rc == 0, f"{argv[0]} exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def _losses(log: str, prefix: str) -> dict:
+    import re
+
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        rf"^{prefix} (\d+): loss ([0-9.]+)$", log, re.M)}
+
+
+def _serve_and_ask(store_dir: str, titles, device: str):
+    """``python -m legal_rag_tpu_torch serve`` over the built store, in a
+    process of its own: POST /api/v1/query per title and one
+    /api/v1/batch_search of them all (k=10); the server is stopped
+    before this returns. Returns (answers, batch rows, seconds to ready)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if "API_KEY" not in k}
+    log = open(os.path.join(REPO_ROOT, "build", "smoke_serve.log"), "w")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "legal_rag_tpu_torch", "serve", "--store",
+         store_dir, "--host", "127.0.0.1", "--port", str(port), "--device",
+         device],
+        cwd=REPO_ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+    )
+    url = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            check(proc.poll() is None, f"serve exited {proc.returncode}; "
+                  "see build/smoke_serve.log")
+            check(time.time() - t0 < 300, "serve not ready in 300 s")
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    if json.loads(r.read()).get("engine_status") == "ready":
+                        break
+            except OSError:
+                pass
+            time.sleep(1)
+        ready_s = time.time() - t0
+        answers = [post(url + "/api/v1/query", {"query": q}) for q in titles]
+        batch = post(url + "/api/v1/batch_search",
+                     {"queries": list(titles), "k": 10})["results"]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    return answers, batch, ready_s
+
+
+def phase_build(seed: int, device: str = "cuda", n_chunks: int = BUILD_CHUNKS,
+                build_args=BUILD_ARGS, subset: int = BUILD_SUBSET,
+                encode_docs: int = ENCODE_DOCS, timed_steps: int = 10) -> dict:
+    """The build path on ``device``: a markdown corpus of the five laws,
+    ``ingest`` and ``build`` through the port's command line, the store
+    served by ``python -m legal_rag_tpu_torch serve`` and asked each of
+    three titles (its own chunks must come back in the top 10), an
+    untrained build of ``subset`` chunks against the CPU's, the encode
+    throughput over ``encode_docs`` chunks of the corpus's lengths, and
+    the training steps' times. Returns what the phase line prints."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from legal_rag_tpu_torch.evaluation import labeled_pairs_from_chunks
+    from legal_rag_tpu_torch.index.builder import build_index
+    from legal_rag_tpu_torch.index.store import VectorStore
+    from legal_rag_tpu_torch.ingest.synthetic import write_legal_corpus
+
+    out = {"build_args": build_args, "subset": subset,
+           "encode_docs": encode_docs}
+    root = os.path.join(REPO_ROOT, "build", "smoke_build")
+    shutil.rmtree(root, ignore_errors=True)
+    docs, chunks_json = os.path.join(root, "docs"), os.path.join(root,
+                                                                "chunks.json")
+    store_dir = os.path.join(root, "store")
+    t0 = time.time()
+    write_legal_corpus(docs, n_chunks=n_chunks, seed=seed)
+    ingest_log = _run_cli(["ingest", "--docs", docs, "--out", chunks_json,
+                           "--debug-dump", ""])
+    out["ingest"] = ingest_log.strip().splitlines()[0]
+    out["corpus_s"] = time.time() - t0
+    t0 = time.time()
+    log = _run_cli(["build", "--source", chunks_json, "--store", store_dir,
+                    "--device", device, *build_args])
+    out["build_s"] = time.time() - t0
+    with open(os.path.join(root, "build.log"), "w") as f:
+        f.write(log)
+    ft, ce = _losses(log, "step"), _losses(log, "ce-hard step")
+    check(ft and all(map(math.isfinite, ft.values())), "fine-tune losses")
+    check(ce and all(map(math.isfinite, ce.values())), "CE losses")
+    # the fine-tune's logged losses fall from the first third to the last
+    # (one batch's loss is noisy); the CE's recipe sits near chance, ln 8,
+    # for its first few hundred steps in both packages, so its losses are
+    # printed and the gate decides
+    third = max(1, len(ft) // 3)
+    logged = [ft[k] for k in sorted(ft)]
+    check(len(logged) < 2 or sum(logged[-third:]) < sum(logged[:third]),
+          f"fine-tune loss did not fall: {ft}")
+    out["ft_losses"], out["ce_losses"] = ft, ce
+    out["gate"] = [ln.strip() for ln in log.splitlines()
+                   if "gate alpha" in ln or "reranker " in ln]
+    out["stages"] = next(ln for ln in log.splitlines()
+                         if ln.startswith("build stages (s): "))
+    store = VectorStore.load(store_dir)
+    chunks = store.chunks
+    check(store.n_docs == len(chunks) and np.isfinite(store.embeddings).all(),
+          "store")
+    flags = {k: int(float(v)) for k, v in zip(build_args[::2],
+                                               build_args[1::2])}
+    check(store.pq_codes.shape == (store.n_docs, flags["--pq-m"]), "PQ codes")
+    check(store.ivf_centroids.shape[0] == -(-store.n_docs // flags[
+        "--ivf-cell-size"]), "IVF cells")
+    check(store.mv_tokens.shape[1:] == (flags["--multi-vector"], store.dim),
+          "token slab")
+    out["validated"] = store.ce_params is not None
+    out["alpha"] = store.ce_alpha
+    check(out["validated"] == any("reranker validated" in g
+                                  for g in out["gate"]), "gate verdict")
+    out["n_docs"] = store.n_docs
+
+    # serve the built store in a process of its own, ask three titles
+    pairs = labeled_pairs_from_chunks(chunks)
+    asked = [pairs[0], pairs[len(pairs) // 2], pairs[-1]]
+    answers, batch, out["ready_s"] = _serve_and_ask(
+        store_dir, [q for q, _ in asked], device)
+    for (title, rel), body, rows in zip(asked, answers, batch):
+        sids = {chunks[i].get("section_id") for i in rel} - {None}
+        got = {c.get("section_id") for c in body["context_used"]}
+        check(bool(sids & got), f"/api/v1/query {title!r}: none of {sids} "
+              f"in {got}")
+        ids = [r["doc_id"] for r in rows]
+        check(len(ids) == 10 and set(rel) & set(ids), f"batch_search "
+              f"{title!r}: none of {rel} in the top 10 {ids}")
+    out["asked"] = [q for q, _ in asked]
+
+    # an untrained build of a subset on the card against the CPU's
+    sub = chunks[:subset]
+    t0 = time.time()
+    card = build_index(sub, device=device)
+    out["subset_card_s"] = time.time() - t0
+    t0 = time.time()
+    cpu = build_index(sub, device="cpu")
+    out["subset_cpu_s"] = time.time() - t0
+    err = float(np.abs(card.embeddings - cpu.embeddings).max())
+    check(err <= EMB_TOL, f"card vs CPU embeddings {err}")
+    check(card.corpus_hash == cpu.corpus_hash, "card vs CPU corpus_hash")
+    for field in ("indptr", "doc_ids", "weights", "idf", "doc_len"):
+        check(np.array_equal(getattr(card.bm25, field),
+                             getattr(cpu.bm25, field)), f"BM25 {field}")
+    out["subset_err"] = err
+    del card, cpu
+
+    out.update(measure_build_steps(store, chunks, device, encode_docs,
+                                   timed_steps))
+    return out
+
+
+def measure_build_steps(store, chunks, device, encode_docs, timed_steps):
+    """Encode throughput (the corpus's token ids tiled to
+    ``encode_docs``, device batches of each ENCODE_BATCHES size; the
+    tokenizer's host rate apart) beside the fp32 FLOP bound, and the
+    ms of one fine-tune step (batch 32, max_len 128, with and without
+    the token term) and one CE step (8 groups of 8 docs), by CUDA
+    events over ``timed_steps`` steps on fixed batches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from legal_rag_tpu_torch.models.cross_encoder import (
+        CrossEncoder, _fixed_pairs, make_ce_train_step_grouped,
+    )
+    from legal_rag_tpu_torch.models.encoder import SentenceEncoder
+    from legal_rag_tpu_torch.models.finetune import (
+        fixed_length, make_sibling_pairs,
+    )
+    from legal_rag_tpu_torch.models.train import adamw, make_train_step
+    from legal_rag_tpu_torch.models.wordpiece import (
+        WordPieceTokenizer, pad_and_bucket,
+    )
+    from legal_rag_tpu_torch.utils.timing import time_ms
+
+    fp32 = PEAK_OPS_PER_S["fp32"]
+    out = {}
+    enc = SentenceEncoder(params=store.encoder_params,
+                          tokenizer=WordPieceTokenizer(store.wp_vocab),
+                          device=device)
+    texts = [c["text"] for c in chunks]
+    t0 = time.time()
+    ids = enc.tokenize(texts)
+    out["tokenize_docs_s"] = len(texts) / (time.time() - t0)
+    tiled = [ids[i % len(ids)] for i in range(encode_docs)]
+    lengths = sorted(len(t) for t in tiled)
+    out["encode"] = {}
+    for bs in ENCODE_BATCHES:
+        padded = []
+        for lo in range(0, len(lengths), bs):
+            part = lengths[lo:lo + bs]
+            padded += [pad_and_bucket([np.zeros(part[-1], np.int32)],
+                                      enc.cfg.max_len, 0)[0].shape[1]] * len(
+                part)
+        enc.encode_ids(tiled[:bs * 2], batch_size=bs)      # warm-up
+        t0 = time.time()
+        emb = enc.encode_ids(tiled, batch_size=bs)
+        dt = time.time() - t0
+        check(emb.shape == (encode_docs, enc.cfg.hidden)
+              and np.isfinite(emb).all(), "encode output")
+        flops = minilm_flops(enc.cfg, padded)
+        out["encode"][bs] = {
+            "docs_s": encode_docs / dt, "s": dt, "tflops": flops / dt / 1e12,
+            "bound_docs_s": encode_docs / (flops / fp32),
+            "bound_real_docs_s": encode_docs / (
+                minilm_flops(enc.cfg, lengths) / fp32),
+        }
+    out["mean_tokens"] = float(np.mean(lengths))
+    # what keeping TF32 off costs: the batch-512 encode with it on
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        t0 = time.time()
+        tf32 = enc.encode_ids(tiled, batch_size=ENCODE_BATCHES[-1])
+        out["encode_tf32_docs_s"] = encode_docs / (time.time() - t0)
+        out["tf32_err"] = float(np.abs(tf32 - emb).max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    # one fine-tune batch and one CE batch, fixed, on the card
+    rng = np.random.default_rng(0)
+    stream = make_sibling_pairs(chunks, rng)
+    queries, docs = zip(*(next(stream) for _ in range(32)))
+    max_len = min(enc.cfg.max_len, 128)
+    tok, pad = enc.tokenizer, enc.tokenizer.pad_id
+    q_ids, q_mask = tok.encode_batch(queries, max_len=max_len)
+    d_ids, d_mask = tok.encode_batch(docs, max_len=max_len)
+    batch = (fixed_length(q_ids, 32, max_len, pad, device),
+             fixed_length(q_mask, 32, max_len, 0, device),
+             fixed_length(d_ids, 32, max_len, pad, device),
+             fixed_length(d_mask, 32, max_len, 0, device))
+    step_flops = minilm_flops(enc.cfg, [max_len] * 64, train=True)
+    out["steps"] = {}
+    for weight in (0.0, 0.5):
+        model = copy.deepcopy(enc.model)
+        step = make_train_step(model, adamw(model.parameters(), 2e-5),
+                               maxsim_weight=weight)
+        ms = time_ms(lambda: step(*batch), iters=timed_steps, warmup=2)
+        out["steps"][f"finetune tok={weight}"] = (ms, step_flops / fp32 * 1e3)
+        if weight:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                out["steps"]["finetune tok=0.5, TF32 on"] = (time_ms(
+                    lambda: step(*batch), iters=timed_steps, warmup=2),
+                    step_flops / PEAK_OPS_PER_S["tf32"] * 1e3)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        del model, step
+    ce = CrossEncoder(enc)
+    grid_q = [q for q in queries[:8] for _ in range(8)]
+    grid_d = list(docs[:8]) * 8
+    pairs = _fixed_pairs(ce, grid_q, grid_d, max_len)
+    step = make_ce_train_step_grouped(ce, adamw(ce.parameters(), 5e-5), 8)
+    ms = time_ms(lambda: step(*pairs), iters=timed_steps, warmup=2)
+    out["steps"]["CE 8x8"] = (ms, step_flops / fp32 * 1e3)
+    del ce, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_build(b: dict) -> None:
+    """Phase 9's two lines, from what ``phase_build`` returns."""
+    print(f"phase 9 ok: {b['ingest']} ({b['corpus_s']:.1f} s); build "
+          f"{' '.join(b['build_args'])} of {b['n_docs']} chunks in "
+          f"{b['build_s']:.1f} s; {b['stages']}; fine-tune loss by step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in b["ft_losses"].items())
+          + "; CE loss by step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in b["ce_losses"].items())
+          + f"; gate: {' | '.join(b['gate'])} (persisted: {b['validated']}, "
+          f"alpha {b['alpha']}); `serve` ready in {b['ready_s']:.1f} s, "
+          f"/api/v1/query and batch_search (k=10) found each title's own "
+          f"chunks for {b['asked']}; untrained {b['subset']}-chunk build on "
+          f"the card ({b['subset_card_s']:.1f} s) == the CPU's "
+          f"({b['subset_cpu_s']:.1f} s): embeddings within {EMB_TOL} (max "
+          f"abs err {b['subset_err']:.3g}), BM25 equal, corpus_hash equal",
+          flush=True)
+    print(f"phase 9 ok: tokenizer (host, Python) "
+          f"{b['tokenize_docs_s']:.0f} docs/s; encode of {b['encode_docs']} "
+          f"chunks "
+          f"(mean {b['mean_tokens']:.1f} WordPiece tokens, fp32, TF32 off): "
+          + "; ".join(
+              f"batch {bs}: {e['docs_s']:.0f} docs/s ({e['s']:.3f} s, "
+              f"{e['tflops']:.2f} TFLOP/s; fp32 FLOP bound "
+              f"{e['bound_docs_s']:.0f} docs/s at the padded lengths, "
+              f"{e['bound_real_docs_s']:.0f} at the real ones)"
+              for bs, e in b["encode"].items())
+          + f"; with TF32 on, batch {ENCODE_BATCHES[-1]}: "
+          f"{b['encode_tf32_docs_s']:.0f} docs/s (max abs change of an "
+          f"embedding {b['tf32_err']:.3g})"
+          + "; ms a step (CUDA events, fixed batches, FLOP bound of its "
+          "type beside): " + "; ".join(
+              f"{name} {ms:.3f} (bound {bnd:.3f})"
+              for name, (ms, bnd) in b["steps"].items()), flush=True)
+
+
 def ptxas_registers(log: str) -> str:
     """``kernel<template args>: N`` for every instantiation in an nvcc
     ``-Xptxas -v`` log."""
@@ -1850,6 +2205,12 @@ def main() -> int:
           f"{bms['slab_share']:.1%} of 3.35 TB/s), rerank "
           f"{bms['rerank_ms']:.3f} ms, top-1 agreement {bms['top1']}, top-10 "
           f"overlap {bms['overlap']}", flush=True)
+
+    # -- 9. the build path: ingest, build (fine-tune, PQ + IVF, token
+    # slab, CE and its gate), serve, the card against the CPU
+    b = phase_build(args.seed)
+    torch.cuda.empty_cache()
+    print_build(b)
 
     check("jax" not in sys.modules, "the run imported jax")
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"

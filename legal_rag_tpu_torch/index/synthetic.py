@@ -36,6 +36,7 @@ import numpy as np
 
 from legal_rag_tpu_torch.config import EncoderConfig
 from legal_rag_tpu_torch.index.store import VectorStore
+from legal_rag_tpu_torch.models.minilm import random_minilm_params
 from legal_rag_tpu_torch.models.wordpiece import build_wordpiece_vocab
 from legal_rag_tpu_torch.ops.sparse import BM25Index, tokenize
 
@@ -154,42 +155,6 @@ def bm25_csr(
         idf=idf, doc_len=doc_len, n_docs=n_docs, avgdl=avgdl,
         k1=k1, b=b, epsilon=epsilon,
     )
-
-
-def random_minilm_params(
-    rng, cfg: EncoderConfig, vocab_size: int, max_position: int = 512
-) -> Dict:
-    """MiniLM param pytree (the JAX package's layout), N(0, 0.02)
-    weights, zero biases, unit LayerNorm scales."""
-    def normal(*shape):
-        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
-
-    def dense(n_in, n_out):
-        return {"kernel": normal(n_in, n_out),
-                "bias": np.zeros((n_out,), np.float32)}
-
-    def ln(n):
-        return {"scale": np.ones((n,), np.float32),
-                "bias": np.zeros((n,), np.float32)}
-
-    h, i = cfg.hidden, cfg.intermediate
-    layers = [{
-        "attention": {name: dense(h, h)
-                      for name in ("query", "key", "value", "output")},
-        "attention_ln": ln(h),
-        "intermediate": dense(h, i),
-        "output": dense(i, h),
-        "output_ln": ln(h),
-    } for _ in range(cfg.layers)]
-    return {
-        "embeddings": {
-            "word": normal(vocab_size, h),
-            "position": normal(max_position, h),
-            "token_type": normal(cfg.type_vocab_size, h),
-            "ln": ln(h),
-        },
-        "layers": layers,
-    }
 
 
 def synthesize_store(

@@ -5,14 +5,16 @@ BERT (biased variance, eps 1e-12), exact erf GELU, attention written
 out as matmul + softmax with an fp32 additive mask bias of -1e9 (which
 would overflow in fp16), masked mean pooling and L2 normalization.
 Weights come from the JAX param pytree through
-:func:`legal_rag_tpu_torch.models.convert.minilm_state_dict_from_jax`.
+:func:`legal_rag_tpu_torch.models.convert.minilm_state_dict_from_jax`;
+:func:`init_minilm_params` makes that pytree from a seed with numpy.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -142,3 +144,52 @@ def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tenso
     pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1e-9)
     norm = torch.sqrt((pooled * pooled).sum(dim=-1, keepdim=True))
     return pooled / norm.clamp(min=1e-12)
+
+
+def random_minilm_params(
+    rng: np.random.Generator, cfg: EncoderConfig, vocab_size: int,
+    max_position: int = 512,
+) -> Dict:
+    """MiniLM param pytree (the JAX package's layout), N(0, 0.02)
+    weights from ``rng``, zero biases, unit LayerNorm scales."""
+    def normal(*shape):
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    def dense(n_in, n_out):
+        return {"kernel": normal(n_in, n_out),
+                "bias": np.zeros((n_out,), np.float32)}
+
+    def ln(n):
+        return {"scale": np.ones((n,), np.float32),
+                "bias": np.zeros((n,), np.float32)}
+
+    h, i = cfg.hidden, cfg.intermediate
+    layers = [{
+        "attention": {name: dense(h, h)
+                      for name in ("query", "key", "value", "output")},
+        "attention_ln": ln(h),
+        "intermediate": dense(h, i),
+        "output": dense(i, h),
+        "output_ln": ln(h),
+    } for _ in range(cfg.layers)]
+    return {
+        "embeddings": {
+            "word": normal(vocab_size, h),
+            "position": normal(max_position, h),
+            "token_type": normal(cfg.type_vocab_size, h),
+            "ln": ln(h),
+        },
+        "layers": layers,
+    }
+
+
+def init_minilm_params(
+    cfg: EncoderConfig, seed: int = 0, max_position: int = 512
+) -> Dict:
+    """Deterministic random init with the distribution of the JAX
+    package's ``init_minilm_params`` (normal 0.02, BERT-style), drawn by
+    numpy: ``jax.random``'s numbers cannot be reproduced here, so the
+    same seed gives other weights than the JAX package's."""
+    return random_minilm_params(
+        np.random.default_rng(seed), cfg, cfg.vocab_size, max_position
+    )

@@ -53,6 +53,20 @@ COPIED_OBJECTS = [
     "ops.pq:unpack_codes",
     "ops.pq:decode_pq",
     "ops.pq:IVFIndex",
+    "models.convert:convert_hf_bert",
+    "models.convert:_dense",
+    "models.convert:_ln",
+    "models.finetune:augment_query",
+    "models.finetune:make_pairs",
+    "models.finetune:section_groups",
+    "models.finetune:make_sibling_pairs",
+    "models.cross_encoder:make_hard_negative_miner",
+    "evaluation:labeled_pairs_from_chunks",
+    "evaluation:paraphrase_pairs_from_chunks",
+    "evaluation:sibling_span_pairs_from_chunks",
+    "evaluation:recall_at_k",
+    "evaluation:mrr_at_k",
+    "index.builder:_chunk_dicts",
 ]
 
 # copied as they are so that both packages dispatch at the same sizes
@@ -65,6 +79,10 @@ COPIED_CONSTANTS = [
     "ops.dense:_TIE_OVERSAMPLE",
     "models.cross_encoder:HEADING_MAX_WORDS",
     "ops.pq:_NEG_F32",
+    "models.finetune:SIBLING_PROB_DEFAULT",
+    "models.finetune:REGISTER_FORMS",
+    "models.finetune:AUGMENT_KINDS_DEFAULT",
+    "evaluation:_SOP_PREFIX",
 ]
 
 

@@ -38,8 +38,9 @@ print(" ".join(names))
 """
 
 # the modules of the quantized tiers, the store module whose ivf_index()
-# imports one of them lazily, the column-major kernels, the bench, and
-# the port's own copies of the JAX package's host modules
+# imports one of them lazily, the column-major kernels, the bench, the
+# port's own copies of the JAX package's host modules, and the build
+# path (training, evaluation, the builder, the command line)
 NAMED_MODULES = [
     "legal_rag_tpu_torch.ops.pq",
     "legal_rag_tpu_torch.ops.pq_segmax",
@@ -62,6 +63,14 @@ NAMED_MODULES = [
     "legal_rag_tpu_torch.ingest",
     "legal_rag_tpu_torch.ingest.parser",
     "legal_rag_tpu_torch.ingest.pipeline",
+    "legal_rag_tpu_torch.ingest.synthetic",
+    "legal_rag_tpu_torch.models.train",
+    "legal_rag_tpu_torch.models.finetune",
+    "legal_rag_tpu_torch.models.cross_encoder",
+    "legal_rag_tpu_torch.evaluation",
+    "legal_rag_tpu_torch.index.builder",
+    "legal_rag_tpu_torch.scripts.train_reranker",
+    "legal_rag_tpu_torch.cli",
 ]
 
 
@@ -181,6 +190,8 @@ def _entry_points():
     )
     from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
     from legal_rag_tpu_torch.retrieval.facade import LegalEngine
+    from legal_rag_tpu_torch import evaluation
+    from legal_rag_tpu_torch.index.builder import build_index
     from legal_rag_tpu_torch.scripts import bench_maxsim_scale
 
     return {
@@ -197,6 +208,11 @@ def _entry_points():
         "ShardedMultiVectorIndex.from_arrays":
             ShardedMultiVectorIndex.from_arrays,
         "bench_maxsim_scale.run": bench_maxsim_scale.run,
+        "build_index": build_index,
+        "evaluate_store": evaluation.evaluate_store,
+        "evaluate_rerank": evaluation.evaluate_rerank,
+        "compare_encoders": evaluation.compare_encoders,
+        "_bm25_ranked_ids": evaluation._bm25_ranked_ids,
     }
 
 
@@ -207,6 +223,8 @@ def _entry_points():
     "train_pq", "encode_pq", "build_ivf",
     "MultiVectorIndex.from_token_embeddings",
     "ShardedMultiVectorIndex.from_arrays", "bench_maxsim_scale.run",
+    "build_index", "evaluate_store", "evaluate_rerank", "compare_encoders",
+    "_bm25_ranked_ids",
 ])
 def test_entry_point_defaults_to_the_card(name):
     """A missing card fails loudly; the work never moves to the CPU

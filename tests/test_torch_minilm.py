@@ -150,7 +150,18 @@ def test_sentence_encoder_matches_jax(params):
 
 
 def test_sentence_encoder_requires_weights():
+    """Without ``params`` the encoder makes its weights: the numpy init
+    of its seed (the JAX package's random init draws other numbers),
+    with the word table sized to the vocab built from ``vocab_corpus``."""
     from legal_rag_tpu_torch.models.encoder import SentenceEncoder
+    from legal_rag_tpu_torch.models.minilm import init_minilm_params
 
-    with pytest.raises(ValueError, match="encoder.npz"):
-        SentenceEncoder(cfg=CFG, params=None, device="cpu")
+    texts = ["punishment for robbery", "zero fir registration procedure"]
+    enc = SentenceEncoder(cfg=CFG, vocab_corpus=texts, seed=5, device="cpu")
+    assert enc.tokenizer_impl == "python"
+    assert enc.cfg.vocab_size == len(enc.tokenizer.vocab)
+    ref = init_minilm_params(enc.cfg, seed=5)
+    assert np.array_equal(enc.params["embeddings"]["word"],
+                          ref["embeddings"]["word"])
+    again = SentenceEncoder(cfg=CFG, vocab_corpus=texts, seed=5, device="cpu")
+    np.testing.assert_array_equal(enc.encode(texts), again.encode(texts))
