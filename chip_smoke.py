@@ -61,6 +61,16 @@ Phases, one output line each:
    calls): the row-major recall@10 >= 0.999, every full path's top-10
    equal to the flat select's under the tie rule, and K1's, K4's, X1's
    and X2's launches over that run;
+2i. the kernel scripts of the evaluation slice at reduced size
+   (SCRIPT_SIZES; 5 timed calls a row): exp_rm_sweep (K1 and K1-int8,
+   every (block_n, seg_rows) config, int8, sup 64 and 256),
+   exp_twophase_full (K4: unpadded, prepadded, kk32, noemit, with the
+   memory a call allocates), bench_pq and exp_ivf_recovery (K2) on the
+   card and exp_ivf_recovery_recall's numpy mirror on the host: every
+   two-phase top-10 equal to the flat select's (recall@10 1.0 but the
+   int8 metric's row), the recovery floors at oversample 64, the card's
+   pq dispatch returning >= 0.99 of the mirror's candidates, and K1's,
+   K1-int8's, K2's and K4's launches over that run;
 3. a synthetic store made from --seed (default 1,000,000 docs) with
    its PQ and IVF artifacts, saved with the port's VectorStore.save
    under build/ and loaded back, and its late-interaction slab (32
@@ -107,10 +117,25 @@ Phases, one output line each:
    1e-5, BM25 and corpus_hash equal); the encode throughput over 65,536
    chunks at batches 64 and 512 beside the fp32 FLOP bound, and the
    fine-tune and CE steps' ms.
+10. the evaluation path over phase 9's store: ``eval
+   --include-paraphrase``, ``eval-gate`` and ``eval-retrieval
+   --include-pq --include-maxsim`` through ``python -m
+   legal_rag_tpu_torch`` on the card, each in a process of its own with
+   its report under build/smoke_eval (each exit code as its report's
+   gate says; a 300-step store fails the serving floors), their wall
+   seconds, tables and provenance (platform gpu, the card's name);
+   eval-retrieval's recall@10 and MRR a mode equal to a CPU run's
+   within 2/n; K2's launches over the pq mode of ``evaluate_store`` in
+   this process, and K2 at the eval's shape against its plain version;
+   ``run_retrieval_gate`` at the untrained CI floors; diag_paraphrase,
+   eval_fusion_policy (bootstrap 200), exp_paraphrase_sparse and
+   eval_ce_paraphrase (200 queries a split) on the same store, the two
+   that rerank over a copy with a 20-step CE persisted on purpose (the
+   build's gate rejects a CE at this depth).
 
 Then a JSON line with each kernel's launches, error, times and bound
 (K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also on the
-maxsim-rerank path),
+maxsim-rerank path; K2 also on the eval path's pq mode),
 and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the exit code is non-zero and that last line is not printed. No module
 of the JAX package (``legal_rag_tpu``) may be loaded by the end.
@@ -184,6 +209,16 @@ X2_TOL = 1e-5       # X2 vs plain: fp32 sums of 384 exact bf16 products of
 EXPERIMENTS = ("exp_dense_roofline", "exp_twophase_stages",
                "exp_twophase_rowmajor", "exp_rm_stages",
                "exp_select_variants", "exp_member_topk")
+# the kernel scripts' reduced sizes in phase 2i (their defaults: 2^20 or
+# 1,000,000 docs; PERF.md has the full-size tables): 250,000 is not a
+# multiple of the 8,192-column padding unit, so exp_twophase_full's
+# unpadded and prepadded cases differ; the numpy mirror runs on the host
+SCRIPT_SIZES = {"exp_rm_sweep": 1 << 18, "exp_twophase_full": 250_000,
+                "bench_pq": 1 << 18, "exp_ivf_recovery": 1 << 18,
+                "exp_ivf_recovery_recall": 1 << 16}
+# the card's pq dispatch against the numpy mirror's candidates: fp32
+# table sums in another order may trade a near-tied candidate at the cut
+SCRIPT_OVERLAP = 0.99
 MV_TD = 32          # the token slab's budget (`build --multi-vector 32`)
 MAXSIM_TOL = 1e-5   # MaxSim vs float64: per real query token (one fp32
                     # max of a 384-term sum of exact bf16 products)
@@ -868,6 +903,110 @@ def phase_experiments(torch):
               f"{counts}")
     return rows, counts, recall[0], time.time() - t0
 
+
+
+def phase_kernel_scripts(torch) -> dict:
+    """The five kernel scripts of the evaluation slice at reduced size
+    (SCRIPT_SIZES), 5 timed calls after 2 warm-ups a row:
+    exp_rm_sweep (K1, K1-int8), exp_twophase_full (K4), bench_pq and
+    exp_ivf_recovery (K2) on the card, exp_ivf_recovery_recall's numpy
+    mirror on the host (its dispatch on the card). Returns their rows,
+    the launches over exactly that run and the seconds."""
+    from legal_rag_tpu_torch.scripts import (
+        bench_pq, exp_ivf_recovery, exp_ivf_recovery_recall, exp_rm_sweep,
+        exp_twophase_full,
+    )
+
+    def log(name):
+        return lambda line: print(f"  {name}: {line}", flush=True)
+
+    timing = dict(iters=5, warmup=2)
+    n = SCRIPT_SIZES
+    reset_counts()
+    t0 = time.time()
+    rows = {
+        "exp_rm_sweep": exp_rm_sweep.run(n["exp_rm_sweep"], device="cuda",
+                                         log=log("exp_rm_sweep"), **timing),
+        "exp_twophase_full": exp_twophase_full.run(
+            n["exp_twophase_full"], device="cuda",
+            log=log("exp_twophase_full"), **timing),
+        "bench_pq": bench_pq.run(n["bench_pq"], recall_docs=n["bench_pq"] // 4,
+                                 device="cuda", log=log("bench_pq"), **timing),
+        "exp_ivf_recovery": exp_ivf_recovery.run(
+            n["exp_ivf_recovery"], device="cuda",
+            log=log("exp_ivf_recovery"), **timing),
+        "exp_ivf_recovery_recall": exp_ivf_recovery_recall.run(
+            n["exp_ivf_recovery_recall"], device="cuda",
+            log=log("exp_ivf_recovery_recall")),
+    }
+    torch.cuda.synchronize()
+    counts = read_counts()
+    secs = time.time() - t0
+    for name in ("exp_rm_sweep", "exp_twophase_full"):
+        for r in rows[name]:
+            if "match" not in r:
+                continue
+            check(r["match"], f"{name} {r['name']}: top-10 differs from the "
+                  f"flat select's")
+            check("int8" in r["name"] or r["recall"] == 1.0,
+                  f"{name} {r['name']}: recall@10 {r['recall']} against the "
+                  f"flat select")
+    for r in rows["exp_twophase_full"]:
+        check(r["peak_extra_mb"] is not None, "exp_twophase_full memory")
+    for r in rows["exp_ivf_recovery"]:
+        check(0.0 <= r["recall"] <= 1.0 and r["ms"] is not None,
+              f"exp_ivf_recovery {r['name']}: {r}")
+        if r["oversample"] == RECOVERY_OVERSAMPLE:
+            floor = RECOVERY_FLOOR["flat" if r["dispatch"] == "flat"
+                                   else "ivf512"]
+            check(r["recall"] >= floor, f"exp_ivf_recovery {r['name']}: "
+                  f"recall@10 {r['recall']} < {floor}")
+    for r in rows["exp_ivf_recovery_recall"]:
+        check(r["overlap"] >= SCRIPT_OVERLAP, f"exp_ivf_recovery_recall "
+              f"{r['dispatch']} x{r['oversample']}: the card's dispatch "
+              f"returns {r['overlap']} of the mirror's candidates")
+    for r in rows["bench_pq"]:
+        check("note" in r or r["ms"] is not None
+              or r["name"].startswith("candidate recall"),  # untimed
+              f"bench_pq {r['name']}")
+        check(0.0 <= r.get("recall", 0.0) <= 1.0, f"bench_pq {r['name']}")
+    for kernel in ("K1", "K1-int8", "K2", "K4"):
+        check(counts[kernel] > 0, f"the kernel scripts never launched "
+              f"{kernel}: {counts}")
+    return {"rows": rows, "counts": counts, "secs": secs}
+
+
+def print_kernel_scripts(ks: dict) -> None:
+    rows = ks["rows"]
+    rm = rows["exp_rm_sweep"]
+    best = min((r for r in rm if r["name"].startswith("rm ")),
+               key=lambda r: r["ms"])
+    print(f"phase 2i ok: the kernel scripts at reduced size ("
+          + ", ".join(f"{k} N={v}" for k, v in SCRIPT_SIZES.items())
+          + f"; the scripts' default is 2^20 or 1,000,000) in "
+          f"{ks['secs']:.1f} s: exp_rm_sweep " + ", ".join(
+              f"{r['name']} {r['ms']:.4f} ms" for r in rm)
+          + f" (fastest two-phase: {best['name']}; every two-phase top-10 "
+          f"== the flat select's, recall@10 1.0 but int8 "
+          + f"{[r['recall'] for r in rm if 'int8' in r['name']][0]:.4f}); "
+          f"exp_twophase_full " + ", ".join(
+              f"{r['name']} {r['ms']:.4f} ms ({r['peak_extra_mb']:.1f} MB a "
+              f"call)" for r in rows["exp_twophase_full"])
+          + "; bench_pq " + ", ".join(
+              f"{r['name']} " + ("not run" if "note" in r else
+                                 "untimed" if r["ms"] is None else
+                                 f"{r['ms']:.4f} ms")
+              + (f" recall {r['recall']:.4f}" if "recall" in r else "")
+              for r in rows["bench_pq"])
+          + "; exp_ivf_recovery at oversample 64: " + ", ".join(
+              f"{r['dispatch']} {r['ms']:.4f} ms recall {r['recall']:.4f}"
+              for r in rows["exp_ivf_recovery"]
+              if r["oversample"] == RECOVERY_OVERSAMPLE)
+          + "; exp_ivf_recovery_recall overlap with the card's dispatch >= "
+          f"{min(r['overlap'] for r in rows['exp_ivf_recovery_recall']):.4f}"
+          f"; launches K1 {ks['counts']['K1']}, K1-int8 "
+          f"{ks['counts']['K1-int8']}, K2 {ks['counts']['K2']}, K4 "
+          f"{ks['counts']['K4']}", flush=True)
 
 def post(url: str, payload) -> dict:
     status, body = post_status(url, payload)
@@ -1711,6 +1850,7 @@ def phase_build(seed: int, device: str = "cuda", n_chunks: int = BUILD_CHUNKS,
     check(out["validated"] == any("reranker validated" in g
                                   for g in out["gate"]), "gate verdict")
     out["n_docs"] = store.n_docs
+    out["store_dir"] = store_dir
 
     # serve the built store in a process of its own, ask three titles
     pairs = labeled_pairs_from_chunks(chunks)
@@ -1892,6 +2032,258 @@ def print_build(b: dict) -> None:
               f"{name} {ms:.3f} (bound {bnd:.3f})"
               for name, (ms, bnd) in b["steps"].items()), flush=True)
 
+
+
+EVAL_COMMANDS = (("eval", ("--include-paraphrase",)), ("eval-gate", ()),
+                 ("eval-retrieval", ("--include-pq", "--include-maxsim")))
+CI_FLOORS = {   # tests/test_quality_cli.py's untrained floors
+    "structure": {"mode": "rrf", "recall@10": 0.88},
+    "sibling": {"mode": "rrf", "recall@10": 0.40},
+}
+EVAL_CE_STEPS = 20      # a CE persisted on purpose for eval_ce_paraphrase
+EVAL_SCRIPT_PAIRS = 200  # queries a split for the sparse and CE scripts
+EVAL_BOOTSTRAP = 200
+
+
+def _eval_command(cmd, flags, store_dir, report, device):
+    """``python -m legal_rag_tpu_torch <cmd>`` in a process of its own;
+    returns (exit code, seconds, stdout)."""
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "legal_rag_tpu_torch", cmd, "--store",
+         store_dir, "--report", report, "--device", device, *flags],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=900,
+    )
+    check(out.returncode in (0, 1), f"{cmd} exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    return out.returncode, time.time() - t0, out.stdout
+
+
+def phase_eval(store_dir: str, device: str = "cuda") -> dict:
+    """The evaluation path over phase 9's store: ``eval
+    --include-paraphrase``, ``eval-gate`` and ``eval-retrieval
+    --include-pq --include-maxsim`` through the port's command line on
+    ``device`` (each exit code as its report's gate says; provenance of
+    the card), eval-retrieval's numbers against the CPU's within 2/n a
+    split, K2's launches on the pq mode in process and its time at the
+    eval's shape, the gate at the CI floors, and the four eval scripts
+    (a copy of the store with a CE persisted for two of them)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from legal_rag_tpu_torch.config import DEFAULT_CONFIG
+    from legal_rag_tpu_torch.evaluation import (
+        evaluate_store, labeled_pairs_from_chunks,
+    )
+    from legal_rag_tpu_torch.index.store import VectorStore
+    from legal_rag_tpu_torch.models.cross_encoder import (
+        CrossEncoder, train_cross_encoder_hard,
+    )
+    from legal_rag_tpu_torch.ops.pq import pq_lut
+    from legal_rag_tpu_torch.ops.pq_segmax import (
+        pq_segmax, pq_segmax_reference,
+    )
+    from legal_rag_tpu_torch.quality import run_retrieval_gate
+    from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
+    from legal_rag_tpu_torch.scripts import (
+        diag_paraphrase, eval_ce_paraphrase, eval_fusion_policy,
+        exp_paraphrase_sparse,
+    )
+    from legal_rag_tpu_torch.utils.timing import time_ms
+
+    root = os.path.join(REPO_ROOT, "build", "smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    report = lambda name: os.path.join(root, f"{name}.json")
+    out = {"commands": {}}
+    t_phase = time.time()
+    # eval-retrieval on the CPU, to compare with
+    cpu_log = open(os.path.join(root, "cpu_eval_retrieval.log"), "w")
+    cpu = subprocess.Popen(
+        [sys.executable, "-m", "legal_rag_tpu_torch", "eval-retrieval",
+         "--store", store_dir, "--report", report("cpu_eval-retrieval"),
+         "--device", "cpu", *EVAL_COMMANDS[2][1]],
+        cwd=REPO_ROOT, stdout=cpu_log, stderr=subprocess.STDOUT,
+    )
+    # the card's runs and the in-process work overlap the CPU's run
+    try:
+        for cmd, flags in EVAL_COMMANDS:
+            rc, secs, stdout = _eval_command(cmd, flags, store_dir,
+                                             report(cmd), device)
+            with open(report(cmd)) as f:
+                rep = json.load(f)
+            out["commands"][cmd] = {"rc": rc, "s": secs, "stdout": stdout,
+                                    "report": rep}
+        cmds = out["commands"]
+        ev = cmds["eval"]["report"]
+        ok = ev["passed"] == ev["total"] and ev["paraphrase"]["gate_passed"]
+        check(cmds["eval"]["rc"] == (0 if ok else 1),
+              f"eval exit code {cmds['eval']['rc']} against its report")
+        check(cmds["eval-gate"]["rc"] == (
+            0 if cmds["eval-gate"]["report"]["gate_passed"] else 1),
+            "eval-gate exit code against its report")
+        check(cmds["eval-retrieval"]["rc"] == 0, "eval-retrieval exit code")
+        want = (("gpu", torch.cuda.get_device_name(0)) if device == "cuda"
+                else ("cpu", "cpu"))
+        for cmd, c in cmds.items():
+            prov = c["report"]["provenance"]
+            check((prov["platform"], prov["device_kind"]) == want,
+                  f"{cmd} provenance {prov}")
+        # K2 on the eval path: the pq mode in this process, counted
+        store = VectorStore.load(store_dir)
+        pairs = labeled_pairs_from_chunks(store.chunks)
+        reset_counts()
+        evaluate_store(store, pairs, modes=("pq",), device=device)
+        out["counts"] = read_counts()
+        check(out["counts"]["K2"] > 0, f"the pq mode never launched K2: "
+              f"{out['counts']}")
+        # K2 at the eval's shape: a chunk of 256 queries, the probed cells
+        eng = RetrievalEngine(store, device=device)
+        ivf = store.ivf_index()
+        probes = min(DEFAULT_CONFIG.dense.ivf_probes, ivf.n_cells)
+        codes = torch.from_numpy(ivf.codes[:probes * ivf.cell_size]).to(device)
+        q = eng.encoder.encode([p[0] for p in pairs[:256]])
+        if store.pq_rotation is not None:       # OPQ: queries score rotated
+            q = q @ np.asarray(store.pq_rotation, np.float32)
+        q = torch.from_numpy(np.ascontiguousarray(q)).to(device)
+        lut = pq_lut(q, torch.from_numpy(store.pq_codebooks).to(device))
+        lut = lut.to(torch.bfloat16).contiguous()
+        got, ref = pq_segmax(lut, codes), pq_segmax_reference(lut, codes)
+        out["k2_err"] = float((got - ref).abs().max())
+        check(out["k2_err"] <= PQ_TOL,
+              f"K2 at the eval's shape: {out['k2_err']}")
+        k2 = lambda: pq_segmax(lut, codes)
+        plain = lambda: pq_segmax_reference(lut, codes)
+        p1, ka, kb, p2 = (time_ms(f) for f in (plain, k2, k2, plain))
+        nq, nc, m = q.shape[0], codes.shape[0], codes.shape[1]
+        out["k2"] = {"q": nq, "n": nc, "m": m, "ms": (ka + kb) / 2,
+                     "plain_ms": (p1 + p2) / 2,
+                     "bound": bound(nc * m + nq * 2 * m * 16 * 2
+                                    + nq * (-(-nc // 8)) * 4,
+                                    nq * nc * 2 * m, "fp32")}
+
+        # the gate at the untrained CI floors, in process on the card
+        gate = run_retrieval_gate(store, thresholds=CI_FLOORS, engine=eng,
+                                  device=device)
+        check(gate["gate_passed"] == all(c["passed"] for c in gate["checks"]),
+              "gate verdict")
+        out["ci_gate"] = gate
+
+        # the eval scripts; a CE persisted on purpose on a copy of the store
+        t0 = time.time()
+        ce_dir = os.path.join(root, "store_ce")
+        shutil.copytree(store_dir, ce_dir)
+        ce_store = VectorStore.load(ce_dir)
+        ce = CrossEncoder(RetrievalEngine(ce_store, device=device).encoder)
+        train_cross_encoder_hard(ce, [c["text"] for c in ce_store.chunks],
+                                 chunks=ce_store.chunks, steps=EVAL_CE_STEPS)
+        ce_store.ce_params, ce_store.ce_alpha = ce.params, 0.1
+        ce_store.save(ce_dir)
+        out["ce_s"] = time.time() - t0
+        quiet = lambda line: None
+        scripts = {}
+        for name, fn in (
+            ("diag_paraphrase", lambda: diag_paraphrase.run(
+                ce_dir, device=device, log=quiet)),
+            ("eval_fusion_policy", lambda: eval_fusion_policy.run(
+                store, bootstrap=EVAL_BOOTSTRAP, engine=eng, log=quiet)),
+            ("exp_paraphrase_sparse", lambda: exp_paraphrase_sparse.run(
+                store.chunks, max_pairs=EVAL_SCRIPT_PAIRS, log=quiet)),
+            ("eval_ce_paraphrase", lambda: eval_ce_paraphrase.run(
+                VectorStore.load(ce_dir), n=EVAL_SCRIPT_PAIRS, device=device,
+                log=quiet)),
+        ):
+            t0 = time.time()
+            scripts[name] = (fn(), time.time() - t0)
+        diag = scripts["diag_paraphrase"][0]
+        check(sum(diag["summary"].values()) == 10, f"diag {diag['summary']}")
+        check(scripts["eval_fusion_policy"][0]["provenance"]["platform"]
+              == want[0], "eval_fusion_policy provenance")
+        out["scripts"] = scripts
+        t0 = time.time()
+        check(cpu.wait(timeout=900) == 0, "eval-retrieval on the CPU "
+              "failed; see build/smoke_eval/cpu_eval_retrieval.log")
+        out["cpu_wait_s"] = time.time() - t0
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait(timeout=30)
+        cpu_log.close()
+    with open(report("cpu_eval-retrieval")) as f:
+        cpu_rep = json.load(f)
+    card_rep = cmds["eval-retrieval"]["report"]
+    diffs = {}
+    for split in ("structure", "paraphrase"):
+        n = card_rep[split]["n_queries"]
+        check(cpu_rep[split]["n_queries"] == n, f"{split} query count")
+        for mode, m in card_rep[split]["modes"].items():
+            for metric in ("recall@10", "mrr"):
+                d = abs(m[metric] - cpu_rep[split]["modes"][mode][metric])
+                check(d <= 2 / n, f"eval-retrieval {split}/{mode} {metric}: "
+                      f"card {m[metric]} vs CPU "
+                      f"{cpu_rep[split]['modes'][mode][metric]} (n={n})")
+                diffs[(split, mode, metric)] = d
+    out["max_diff"] = max(diffs.values())
+    out["n_queries"] = {s: card_rep[s]["n_queries"]
+                        for s in ("structure", "paraphrase")}
+    out["wall_s"] = time.time() - t_phase
+    return out
+
+
+def print_eval(e: dict) -> None:
+    """Phase 10's lines, from what ``phase_eval`` returns."""
+    for cmd, c in e["commands"].items():
+        table = [ln for ln in c["stdout"].splitlines()
+                 if ln.strip() and not ln.startswith("report ->")]
+        print(f"phase 10: {cmd} exit {c['rc']} in {c['s']:.1f} s: "
+              + " | ".join(ln.strip() for ln in table), flush=True)
+    prov = e["commands"]["eval-retrieval"]["report"]["provenance"]
+    print("phase 10: provenance " + json.dumps(prov, sort_keys=True),
+          flush=True)
+    gate = e["ci_gate"]
+    scripts = e["scripts"]
+    fp = scripts["eval_fusion_policy"][0]["splits"]
+    sp = scripts["exp_paraphrase_sparse"][0]["splits"]
+    ce = scripts["eval_ce_paraphrase"][0]["splits"]
+    print(f"phase 10 ok: eval, eval-gate and eval-retrieval on the card "
+          f"(provenance gpu, {prov['device_kind']}), exit codes as their "
+          f"reports' gates; eval-retrieval ({e['n_queries']}) == the CPU's "
+          f"within 2/n (max diff {e['max_diff']:.4g}; waited "
+          f"{e['cpu_wait_s']:.1f} s for the CPU's run); K2 launched "
+          f"{e['counts']['K2']}x by the pq mode in process, and at the "
+          f"eval's shape (Q={e['k2']['q']}, {e['k2']['n']} codes of "
+          f"m={e['k2']['m']}) == plain within {PQ_TOL} (max abs err "
+          f"{e['k2_err']:.3g}): K2 {e['k2']['ms']:.4f} ms, plain "
+          f"{e['k2']['plain_ms']:.4f} ms, bound {e['k2']['bound'][0]:.4f} ms; "
+          f"the gate at the CI floors: " + ", ".join(
+              f"{c['name']} {c['mode']} {c['metric']} {c['measured']:.4f} "
+              f"(floor {c['threshold']})" for c in gate["checks"])
+          + f" -> {'PASS' if gate['gate_passed'] else 'FAIL'}; phase wall "
+          f"{e['wall_s']:.1f} s (CE of {EVAL_CE_STEPS} steps persisted on a "
+          f"copy in {e['ce_s']:.1f} s)", flush=True)
+    print(f"phase 10 ok: the eval scripts on the card: diag_paraphrase "
+          f"({scripts['diag_paraphrase'][1]:.1f} s) "
+          f"{scripts['diag_paraphrase'][0]['summary']}; eval_fusion_policy "
+          f"(bootstrap {EVAL_BOOTSTRAP}, {scripts['eval_fusion_policy'][1]:.1f}"
+          f" s) " + "; ".join(
+              f"{split} r@10 " + ", ".join(
+                  f"{mode} {fp[split]['modes'][mode]['recall@10']}"
+                  for mode in ("rrf", "dense", "policy_union"))
+              for split in fp)
+          + f"; exp_paraphrase_sparse ({EVAL_SCRIPT_PAIRS} a split, "
+          f"{scripts['exp_paraphrase_sparse'][1]:.1f} s) " + "; ".join(
+              f"{split} r@10 " + ", ".join(
+                  f"{mode} {v['recall@10']}" for mode, v in
+                  list(sp[split]["modes"].items())[:3])
+              for split in sp)
+          + f"; eval_ce_paraphrase (n={EVAL_SCRIPT_PAIRS}, "
+          f"{scripts['eval_ce_paraphrase'][1]:.1f} s) " + "; ".join(
+              f"{split} base MRR {v['base']['mrr']:.4f}, best alpha "
+              f"{v['best_alpha']} MRR "
+              f"{v['alphas'][str(v['best_alpha'])]['mrr']:.4f}"
+              for split, v in ce.items()), flush=True)
 
 def ptxas_registers(log: str) -> str:
     """``kernel<template args>: N`` for every instantiation in an nvcc
@@ -2127,6 +2519,11 @@ def main() -> int:
           f"{exp_counts['K1']}x, K4 {exp_counts['K4']}x, X1 "
           f"{exp_counts['X1']}x, X2 {exp_counts['X2']}x", flush=True)
 
+    # -- 2i. the kernel scripts of the evaluation slice at reduced size
+    ks = phase_kernel_scripts(torch)
+    torch.cuda.empty_cache()
+    print_kernel_scripts(ks)
+
     # -- 3. synthetic store at serving scale, with PQ and IVF artifacts
     store, expansions = phase_store(args.docs, args.seed, "cuda")
     check(store.pq_codes is not None and store.ivf_centroids is not None,
@@ -2212,6 +2609,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print_build(b)
 
+    # -- 10. the evaluation path over phase 9's store: the eval commands
+    # on the card and the CPU, K2 on the pq mode, the eval scripts
+    ev = phase_eval(b["store_dir"])
+    torch.cuda.empty_cache()
+    print_eval(ev)
+
     check("jax" not in sys.modules, "the run imported jax")
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"
                      or m.startswith("legal_rag_tpu."))
@@ -2257,6 +2660,10 @@ def main() -> int:
          k2_t["plain_ms"],
          bound(N_PQ * PQ_M + 8 * 2 * PQ_M * 16 * 2 + 8 * N_PQ // 8 * 4,
                8 * N_PQ * 2 * PQ_M, "fp32"), None),
+        # the evaluation path: eval-retrieval's pq mode over the IVF cells
+        ("pq_segmax (K2, eval pq mode)", "pq_segmax.cu",
+         "legal_rag_tpu/ops/pq.py:257", ev["counts"]["K2"], ev["k2_err"],
+         ev["k2"]["ms"], ev["k2"]["plain_ms"], ev["k2"]["bound"], None),
         ("fused_topk (K3)", "fused_topk.cu", "legal_rag_tpu/ops/dense.py:147",
          k3_launches, err_k3, k3_t["k3_ms"], k3_t["plain_ms"], k3_t["bound"],
          k3_t["library_ms"]),

@@ -4,10 +4,13 @@
     python -m legal_rag_tpu_torch build    --source DIR_OR_JSON --store DIR
     python -m legal_rag_tpu_torch search   --store DIR --query "..." [--k 5]
     python -m legal_rag_tpu_torch serve    --store DIR [--port 8000]
+    python -m legal_rag_tpu_torch eval     --store DIR [--report out.json]
+    python -m legal_rag_tpu_torch eval-gate --store DIR [--max-queries N]
+    python -m legal_rag_tpu_torch eval-retrieval --store DIR [--include-pq]
     python -m legal_rag_tpu_torch finetune --store DIR --out tuned.npz
     python -m legal_rag_tpu_torch convert  --checkpoint model.bin --out params.npz
 
-``build``, ``search``, ``serve`` and ``finetune`` run on the card
+Every subcommand but ``ingest`` and ``convert`` runs on the card
 unless ``--device cpu`` says otherwise. A store built here or by the
 JAX package serves in either. ``serve`` warms the serving path up and
 serves the HTTP API of ``legal_rag_tpu_torch.server.app`` with the
@@ -15,8 +18,11 @@ port's engine injected; it honours ``LEGAL_RAG_NO_RERANK=1`` (serve
 without the cross-encoder) and ``LEGAL_RAG_NO_COALESCE=1`` (one device
 dispatch per request) as the JAX server does, and ``--dense-dtype
 {float32,bfloat16,int8,pq}`` (or ``LEGAL_RAG_DENSE_DTYPE``) picks the
-dense storage tier. The evaluation subcommands (``eval``,
-``eval-gate``, ``eval-retrieval``) are not ported yet.
+dense storage tier. ``eval`` writes its report to
+``build/quality_report.json`` unless ``--report`` names another file,
+so a run from the repository root leaves its ``quality_report*.json``
+alone; ``eval``, ``eval-gate`` and ``eval-retrieval`` exit 1 when a
+gate fails, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -245,6 +251,146 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_eval(args) -> int:
+    from legal_rag_tpu_torch.quality import run_quality_eval
+
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
+                    exist_ok=True)
+    report = run_quality_eval(
+        args.store, report_path=args.report,
+        include_paraphrase=args.include_paraphrase, device=args.device,
+    )
+    passed = sum(1 for r in report["results"] if r["passed"])
+    print(f"quality eval: {passed}/{len(report['results'])} passed")
+    ok = passed == len(report["results"])
+    if args.include_paraphrase:
+        para = report["paraphrase"]
+        print(
+            f"paraphrase gate: {para['passed']}/{para['total']} grounded "
+            f"(threshold {para['threshold']}) -> "
+            f"{'PASS' if para['gate_passed'] else 'FAIL'}"
+        )
+        ok = ok and para["gate_passed"]
+    return 0 if ok else 1
+
+
+def _cmd_eval_gate(args) -> int:
+    """Big-split retrieval gate: pinned serving thresholds over the
+    structure + sibling-span splits (quality.py
+    RETRIEVAL_GATE_THRESHOLDS)."""
+    from legal_rag_tpu_torch.index.store import VectorStore
+    from legal_rag_tpu_torch.quality import run_retrieval_gate
+
+    store = VectorStore.load(args.store)
+    report = run_retrieval_gate(
+        store, max_queries=args.max_queries, report_path=args.report,
+        device=args.device,
+    )
+    for c in report["checks"]:
+        status = "PASS" if c["passed"] else "FAIL"
+        print(
+            f"  [{status}] {c['split']}/{c['mode']} {c['metric']}: "
+            f"{c['measured']:.4f} (floor {c['threshold']})"
+        )
+    print(f"retrieval gate: {'PASS' if report['gate_passed'] else 'FAIL'}")
+    return 0 if report["gate_passed"] else 1
+
+
+def _cmd_eval_retrieval(args) -> int:
+    """Retrieval-quality recall@k over corpus-structure queries, per
+    mode (dense/bm25/weighted/rrf); optionally the random-vs-fine-tuned
+    encoder ablation or a cross-encoder trained for the run."""
+    from legal_rag_tpu_torch.evaluation import (
+        compare_encoders, evaluate_store, labeled_pairs_from_chunks,
+    )
+    from legal_rag_tpu_torch.index.store import VectorStore
+    from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
+
+    store = VectorStore.load(args.store)
+
+    def show(title, modes):
+        print(title)
+        for mode, m in modes.items():
+            cells = "  ".join(f"{k}={v:.3f}" for k, v in m.items())
+            print(f"  {mode:<9} {cells}")
+
+    if args.rerank_steps:
+        from legal_rag_tpu_torch.evaluation import evaluate_rerank
+        from legal_rag_tpu_torch.models.cross_encoder import (
+            CrossEncoder, train_cross_encoder,
+        )
+
+        engine = RetrievalEngine(store, device=args.device)
+        ce = CrossEncoder(engine.encoder)
+        train_cross_encoder(
+            ce, [c["text"] for c in store.chunks],
+            steps=args.rerank_steps, log_fn=print,
+        )
+        pairs = labeled_pairs_from_chunks(
+            store.chunks, max_pairs=args.max_pairs
+        )
+        print(f"{len(pairs)} labeled structure queries")
+        report = evaluate_rerank(store, pairs, ce, engine=engine)
+        show(f"rerank over {report['base_mode']} top-"
+             f"{report['candidates']}:", report["modes"])
+    elif args.finetune_steps:
+        report = compare_encoders(
+            store.chunks,
+            finetune_steps=args.finetune_steps,
+            max_pairs=args.max_pairs,
+            log_fn=print,
+            device=args.device,
+        )
+        show("random-init encoder:", report["random_encoder"])
+        show("fine-tuned encoder:", report["finetuned_encoder"])
+    else:
+        from legal_rag_tpu_torch.evaluation import (
+            sibling_span_pairs_from_chunks,
+        )
+        from legal_rag_tpu_torch.quality import _provenance
+
+        pairs = labeled_pairs_from_chunks(
+            store.chunks, max_pairs=args.max_pairs
+        )
+        print(f"{len(pairs)} labeled structure queries")
+        modes = ["dense", "bm25", "weighted", "rrf"]
+        if args.include_pq:
+            modes.append("pq")   # capacity-tier candidate coverage
+        if args.include_maxsim:
+            # full-scan + capacity-safe dense-first variants
+            modes.extend(["maxsim", "maxsim-rerank"])
+        engine = RetrievalEngine(store, device=args.device)
+        report = evaluate_store(
+            store, pairs, modes=tuple(modes), engine=engine
+        )
+        show("store encoder (structure/title split):", report["modes"])
+
+        # paraphrase split: a natural span from one chunk of a
+        # multi-chunk section retrieves the section's OTHER chunks
+        # (source masked)
+        para = sibling_span_pairs_from_chunks(
+            store.chunks, max_pairs=args.max_pairs
+        )
+        print(f"{len(para)} sibling-span (paraphrase) queries")
+        para_report = evaluate_store(
+            store, para, modes=tuple(m for m in modes if m != "pq"),
+            engine=engine,
+        )
+        show("store encoder (paraphrase/sibling-span split):",
+             para_report["modes"])
+        report = {
+            "structure": report,
+            "paraphrase": para_report,
+            "provenance": _provenance(engine),
+        }
+    if args.report:
+        with open(args.report, "w", encoding="utf-8") as f:
+            json.dump(report, f, indent=2)
+        print(f"report -> {args.report}")
+    return 0
+
+
 def _cmd_finetune(args) -> int:
     from legal_rag_tpu_torch.index.store import VectorStore
     from legal_rag_tpu_torch.models.convert import save_params_npz
@@ -399,6 +545,62 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     _add_device(p)
     p.set_defaults(fn=_cmd_serve)
+
+    p = sub.add_parser("eval", help="run the quality gate")
+    p.add_argument("--store", required=True)
+    p.add_argument("--report", default=os.path.join("build",
+                                                    "quality_report.json"))
+    p.add_argument(
+        "--include-paraphrase", action="store_true",
+        help="also run the 10-query paraphrase grounding gate "
+             "(serving stores must ground >= the pinned threshold; "
+             "untrained stores are expected to fail it)",
+    )
+    _add_device(p)
+    p.set_defaults(fn=_cmd_eval)
+
+    p = sub.add_parser(
+        "eval-gate",
+        help="big-split retrieval gate with pinned serving thresholds "
+             "(structure RRF + sibling dense recall floors)",
+    )
+    p.add_argument("--store", required=True)
+    p.add_argument("--report", default=None)
+    p.add_argument(
+        "--max-queries", type=int, default=None,
+        help="cap each split (CI / smoke runs); serving gate runs full",
+    )
+    _add_device(p)
+    p.set_defaults(fn=_cmd_eval_gate)
+
+    p = sub.add_parser(
+        "eval-retrieval",
+        help="recall@k per retrieval mode over corpus-structure queries",
+    )
+    p.add_argument("--store", required=True)
+    p.add_argument("--report", default=None)
+    p.add_argument("--max-pairs", type=int, default=None)
+    p.add_argument(
+        "--finetune-steps", type=int, default=0,
+        help="also run the random-vs-fine-tuned encoder ablation",
+    )
+    p.add_argument(
+        "--rerank-steps", type=int, default=0,
+        help="train a cross-encoder reranker for N steps and report "
+             "base-vs-reranked recall/MRR",
+    )
+    p.add_argument(
+        "--include-pq", action="store_true",
+        help="also score the PQ capacity tier (dense-only through the "
+             "4-bit codes + rescore)",
+    )
+    p.add_argument(
+        "--include-maxsim", action="store_true",
+        help="also score the late-interaction (MaxSim) tier; needs a "
+             "store built with --multi-vector",
+    )
+    _add_device(p)
+    p.set_defaults(fn=_cmd_eval_retrieval)
 
     p = sub.add_parser(
         "finetune", help="contrastively adapt the encoder to the corpus"

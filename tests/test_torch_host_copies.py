@@ -67,6 +67,7 @@ COPIED_OBJECTS = [
     "evaluation:recall_at_k",
     "evaluation:mrr_at_k",
     "index.builder:_chunk_dicts",
+    "quality:validate_result",
 ]
 
 # copied as they are so that both packages dispatch at the same sizes
@@ -83,7 +84,29 @@ COPIED_CONSTANTS = [
     "models.finetune:REGISTER_FORMS",
     "models.finetune:AUGMENT_KINDS_DEFAULT",
     "evaluation:_SOP_PREFIX",
+    "quality:QUALITY_SUITE",
+    "quality:PARAPHRASE_SUITE",
+    "quality:PARAPHRASE_PASS_THRESHOLD",
+    "quality:RETRIEVAL_GATE_THRESHOLDS",
 ]
+
+# copies that build an engine and take the port's ``device`` for it:
+# each (port text, reference text) pair maps the port's source back to
+# the reference's, and what is left must be verbatim
+ADAPTED_OBJECTS = {
+    "quality:run_retrieval_gate": (
+        ('    device="cuda",\n', ""),
+        (" Without\n    ``engine`` the gate builds one on ``device``.", ""),
+        ("RetrievalEngine(store, device=device)", "RetrievalEngine(store)"),
+    ),
+    "quality:run_quality_eval": (
+        ('    device="cuda",\n', ""),
+        ("\n\n    The JAX package's function but for ``device``: without "
+         "``engine``\n    the ``LegalEngine`` is built on it (the one line "
+         "that differs).", ""),
+        ("config=cfg, device=device)", "config=cfg)"),
+    ),
+}
 
 
 def _resolve(package, spec):
@@ -103,6 +126,16 @@ def test_copy_is_verbatim(spec):
     port = inspect.getsource(_resolve("legal_rag_tpu_torch", spec))
     ref = inspect.getsource(_resolve("legal_rag_tpu", spec))
     assert _as_reference(port) == ref
+
+
+@pytest.mark.parametrize("spec", sorted(ADAPTED_OBJECTS))
+def test_adapted_copy_differs_only_by_device(spec):
+    port = _as_reference(inspect.getsource(_resolve("legal_rag_tpu_torch",
+                                                    spec)))
+    for got, want in ADAPTED_OBJECTS[spec]:
+        assert got in port, got
+        port = port.replace(got, want)
+    assert port == inspect.getsource(_resolve("legal_rag_tpu", spec))
 
 
 @pytest.mark.parametrize("spec", COPIED_CONSTANTS)

@@ -40,7 +40,8 @@ print(" ".join(names))
 # the modules of the quantized tiers, the store module whose ivf_index()
 # imports one of them lazily, the column-major kernels, the bench, the
 # port's own copies of the JAX package's host modules, and the build
-# path (training, evaluation, the builder, the command line)
+# path (training, evaluation, `index.builder`, the command line), and the
+# evaluation path (the quality gate and the eval and kernel scripts)
 NAMED_MODULES = [
     "legal_rag_tpu_torch.ops.pq",
     "legal_rag_tpu_torch.ops.pq_segmax",
@@ -71,6 +72,17 @@ NAMED_MODULES = [
     "legal_rag_tpu_torch.index.builder",
     "legal_rag_tpu_torch.scripts.train_reranker",
     "legal_rag_tpu_torch.cli",
+    "legal_rag_tpu_torch.quality",
+    "legal_rag_tpu_torch.scripts.eval_ablation",
+    "legal_rag_tpu_torch.scripts.eval_fusion_policy",
+    "legal_rag_tpu_torch.scripts.exp_paraphrase_sparse",
+    "legal_rag_tpu_torch.scripts.diag_paraphrase",
+    "legal_rag_tpu_torch.scripts.eval_ce_paraphrase",
+    "legal_rag_tpu_torch.scripts.exp_ivf_recovery_recall",
+    "legal_rag_tpu_torch.scripts.exp_ivf_recovery",
+    "legal_rag_tpu_torch.scripts.bench_pq",
+    "legal_rag_tpu_torch.scripts.exp_rm_sweep",
+    "legal_rag_tpu_torch.scripts.exp_twophase_full",
 ]
 
 
@@ -193,8 +205,20 @@ def _entry_points():
     from legal_rag_tpu_torch import evaluation
     from legal_rag_tpu_torch.index.builder import build_index
     from legal_rag_tpu_torch.scripts import bench_maxsim_scale
+    from legal_rag_tpu_torch import quality
+    from legal_rag_tpu_torch.scripts import (
+        bench_pq, diag_paraphrase, eval_ablation, eval_ce_paraphrase,
+        eval_fusion_policy, exp_ivf_recovery, exp_ivf_recovery_recall,
+        exp_rm_sweep, exp_twophase_full,
+    )
 
+    scripts = (bench_pq, diag_paraphrase, eval_ablation, eval_ce_paraphrase,
+               eval_fusion_policy, exp_ivf_recovery, exp_ivf_recovery_recall,
+               exp_rm_sweep, exp_twophase_full)
     return {
+        **{f"{m.__name__.rsplit('.', 1)[1]}.run": m.run for m in scripts},
+        "run_quality_eval": quality.run_quality_eval,
+        "run_retrieval_gate": quality.run_retrieval_gate,
         "RetrievalEngine": RetrievalEngine, "LegalEngine": LegalEngine,
         "SentenceEncoder": SentenceEncoder,
         "ShardedIndex.from_pq_ivf": ShardedIndex.from_pq_ivf,
@@ -224,7 +248,11 @@ def _entry_points():
     "MultiVectorIndex.from_token_embeddings",
     "ShardedMultiVectorIndex.from_arrays", "bench_maxsim_scale.run",
     "build_index", "evaluate_store", "evaluate_rerank", "compare_encoders",
-    "_bm25_ranked_ids",
+    "_bm25_ranked_ids", "run_quality_eval", "run_retrieval_gate",
+    "bench_pq.run", "diag_paraphrase.run", "eval_ablation.run",
+    "eval_ce_paraphrase.run", "eval_fusion_policy.run",
+    "exp_ivf_recovery.run", "exp_ivf_recovery_recall.run",
+    "exp_rm_sweep.run", "exp_twophase_full.run",
 ])
 def test_entry_point_defaults_to_the_card(name):
     """A missing card fails loudly; the work never moves to the CPU
