@@ -25,7 +25,10 @@ Phases, one output line each:
    clustered corpus (8, 64 and 128 queries), pq_topk's top-20 against a
    float64 ADC brute
    force, and both versions' times there and on 10,000,000 codes; the
-   same on 1,000,000 random codes at m=24 and m=96;
+   same on 1,000,000 random codes at m=24 and m=96; K2 at every seg_rows
+   it takes (1-64) at 8 and 64 queries on the 1,000,000 codes, against
+   its plain version, pq_topk(seg_rows=16)'s top-10 against float64 ADC,
+   and both versions' times at seg_rows 16;
 2d. the PQ/IVF recovery workload of scripts/exp_ivf_recovery.py on the
    card (1,048,576 clustered docs, 64 queries, post-rescore recall@10
    at oversample 64, flat and at 512 probes);
@@ -65,7 +68,8 @@ Phases, one output line each:
    (SCRIPT_SIZES; 5 timed calls a row): exp_rm_sweep (K1 and K1-int8,
    every (block_n, seg_rows) config, int8, sup 64 and 256),
    exp_twophase_full (K4: unpadded, prepadded, kk32, noemit, with the
-   memory a call allocates), bench_pq and exp_ivf_recovery (K2) on the
+   memory a call allocates), bench_pq (K2, its rows timed at seg_rows 8
+   and 16) and exp_ivf_recovery (K2) on the
    card and exp_ivf_recovery_recall's numpy mirror on the host: every
    two-phase top-10 equal to the flat select's (recall@10 1.0 but the
    int8 metric's row), the recovery floors at oversample 64, the card's
@@ -132,10 +136,26 @@ Phases, one output line each:
    eval_ce_paraphrase (200 queries a split) on the same store, the two
    that rerank over a copy with a 20-step CE persisted on purpose (the
    build's gate rejects a CE at this depth).
+11. the C++ WordPiece tokenizer on the card's host: built by g++ from
+   legal_rag_tpu_torch/native/ into build/, phase 9's store recording
+   ``tokenizer_impl: native-cpp`` (anything else fails the run), its
+   ids equal to the Python tokenizer's on all 2,620 chunks and on
+   tests/test_native.py's adversarial and Unicode fuzz inputs, both
+   tokenizers' docs/s, and phase 9's build seconds beside the same
+   build with the Python tokenizer;
+12. the benches: bench_hybrid_scale at 1,000,000 docs (capped and
+   uncapped hybrid ms a batch of 64, the host gather, the capped sparse
+   recall and the hybrid overlap, K1's launches on its dense stage) and
+   bench_http over phase 9's store (2 requests a client at concurrency
+   1 and 16; coalesced, uncoalesced and no-rerank passes, zero errors);
+13. the deployment entry points start_torch.sh and spaces_app_torch.py
+   over phase 9's store, each ready on /health, one /api/v1/query
+   answered 200, then stopped by SIGTERM to its process group.
 
 Then a JSON line with each kernel's launches, error, times and bound
 (K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also on the
-maxsim-rerank path; K2 also on the eval path's pq mode),
+maxsim-rerank path and bench_hybrid_scale's; K2 also on the eval
+path's pq mode and at seg_rows 16),
 and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the exit code is non-zero and that last line is not printed. No module
 of the JAX package (``legal_rag_tpu``) may be loaded by the end.
@@ -179,6 +199,8 @@ PQ_M = 48
 # 128 (two query tiles); 67 as a direct ops caller may pass it
 K1_QS = (8, 64, 67, 128)
 PQ_WIDTHS = (24, 96)   # more code widths K2 takes (D=384: 8 and 2 dims a subspace)
+PQ_SEG_ROWS = (1, 2, 4, 8, 16, 32, 64)   # the segments K2 takes
+PQ_SEG_QS = (8, 64)                      # their query batches
 N_PQ, N_PQ_BIG = 1_000_000, 10_000_000
 RECOVERY_N, RECOVERY_Q, RECOVERY_OVERSAMPLE = 1 << 20, 64, 64
 RECOVERY_FLOOR = {"flat": 0.99, "ivf512": 0.94}      # the tier's recall floors
@@ -499,6 +521,34 @@ def phase_pq(torch, seed: int):
                                  "plain_ms": (p1 + p2) / 2}
     del big
 
+    # -- K2 at every seg_rows it takes against the plain version, and
+    # pq_topk at seg_rows 16 against float64 ADC; times at seg_rows 16
+    times_sr = {}
+    for qp in PQ_SEG_QS:
+        q = qrot[:qp].contiguous()
+        lut = pq_lut(q, cbs).to(torch.bfloat16).contiguous()
+        for sr in PQ_SEG_ROWS:
+            got = pq_segmax(lut, codes_1m, sr)
+            ref = pq_segmax_reference(lut, codes_1m, sr)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape == (qp, -(-N_PQ // sr)),
+                  f"K2 seg_rows {sr} shape")
+            err = float((got - ref).abs().max())
+            check(err <= PQ_TOL, f"K2 seg_rows {sr} Q={qp} error {err}")
+            max_err = max(max_err, err)
+        k2 = lambda: pq_segmax(lut, codes_1m, 16)
+        plain = lambda: pq_segmax_reference(lut, codes_1m, 16)
+        p1, ka, kb, p2 = (time_ms(f) for f in (plain, k2, k2, plain))
+        times_sr[qp] = {"k2_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
+                        "pq_topk_ms": time_ms(lambda: pq_topk(
+                            q, codes_1m, cbs, 10, seg_rows=16))}
+    q = qrot[:8].contiguous()
+    s, i = pq_topk(q, codes_1m, cbs, 10, seg_rows=16)
+    lut64 = torch.einsum("qmd,mcd->qmc", q.double().reshape(8, 2 * PQ_M, -1),
+                         cbs.double())
+    assert_topk_equiv_scores(torch, adc_scores64(torch, lut64, codes_1m),
+                             10, s, i)
+
     # -- K2 at other code widths: random codes and seeded codebooks,
     # against the plain version and pq_topk's top-20 against float64 ADC
     times_w = {}
@@ -550,7 +600,7 @@ def phase_pq(torch, seed: int):
         check(recall[name] >= RECOVERY_FLOOR[name],
               f"recovery {name}: recall@10 {recall[name]} < "
               f"{RECOVERY_FLOOR[name]}")
-    return max_err, times, recall, (t_data, t_train), times_w
+    return max_err, times, recall, (t_data, t_train), times_w, times_sr
 
 
 def phase_probe(torch) -> dict:
@@ -966,10 +1016,12 @@ def phase_kernel_scripts(torch) -> dict:
               f"{r['dispatch']} x{r['oversample']}: the card's dispatch "
               f"returns {r['overlap']} of the mirror's candidates")
     for r in rows["bench_pq"]:
-        check("note" in r or r["ms"] is not None
-              or r["name"].startswith("candidate recall"),  # untimed
-              f"bench_pq {r['name']}")
+        # every row timed but the candidate recall's
+        check("note" not in r and (r["ms"] is not None or r["name"].startswith(
+            "candidate recall")), f"bench_pq {r['name']}")
         check(0.0 <= r.get("recall", 0.0) <= 1.0, f"bench_pq {r['name']}")
+    check(sum(r["name"].startswith(("pq_topk sr=16", "K2 pq_segmax sr=16"))
+              for r in rows["bench_pq"]) == 2, "bench_pq's seg_rows-16 rows")
     for kernel in ("K1", "K1-int8", "K2", "K4"):
         check(counts[kernel] > 0, f"the kernel scripts never launched "
               f"{kernel}: {counts}")
@@ -993,8 +1045,7 @@ def print_kernel_scripts(ks: dict) -> None:
               f"{r['name']} {r['ms']:.4f} ms ({r['peak_extra_mb']:.1f} MB a "
               f"call)" for r in rows["exp_twophase_full"])
           + "; bench_pq " + ", ".join(
-              f"{r['name']} " + ("not run" if "note" in r else
-                                 "untimed" if r["ms"] is None else
+              f"{r['name']} " + ("untimed" if r["ms"] is None else
                                  f"{r['ms']:.4f} ms")
               + (f" recall {r['recall']:.4f}" if "recall" in r else "")
               for r in rows["bench_pq"])
@@ -1732,19 +1783,39 @@ def _losses(log: str, prefix: str) -> dict:
         rf"^{prefix} (\d+): loss ([0-9.]+)$", log, re.M)}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def wait_ready(url: str, proc, what: str, timeout_s: float = 300) -> float:
+    """Seconds until ``url``/health reports ready; fails when ``proc``
+    exits first or the time runs out."""
+    t0 = time.time()
+    while True:
+        check(proc.poll() is None, f"{what} exited {proc.returncode}")
+        check(time.time() - t0 < timeout_s, f"{what} not ready in "
+              f"{timeout_s} s")
+        try:
+            with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                if json.loads(r.read()).get("engine_status") == "ready":
+                    return time.time() - t0
+        except OSError:
+            pass
+        time.sleep(1)
+
+
 def _serve_and_ask(store_dir: str, titles, device: str):
     """``python -m legal_rag_tpu_torch serve`` over the built store, in a
     process of its own: POST /api/v1/query per title and one
     /api/v1/batch_search of them all (k=10); the server is stopped
     before this returns. Returns (answers, batch rows, seconds to ready)."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     env = {k: v for k, v in os.environ.items() if "API_KEY" not in k}
     log = open(os.path.join(REPO_ROOT, "build", "smoke_serve.log"), "w")
-    t0 = time.time()
     proc = subprocess.Popen(
         [sys.executable, "-m", "legal_rag_tpu_torch", "serve", "--store",
          store_dir, "--host", "127.0.0.1", "--port", str(port), "--device",
@@ -1753,18 +1824,7 @@ def _serve_and_ask(store_dir: str, titles, device: str):
     )
     url = f"http://127.0.0.1:{port}"
     try:
-        while True:
-            check(proc.poll() is None, f"serve exited {proc.returncode}; "
-                  "see build/smoke_serve.log")
-            check(time.time() - t0 < 300, "serve not ready in 300 s")
-            try:
-                with urllib.request.urlopen(url + "/health", timeout=5) as r:
-                    if json.loads(r.read()).get("engine_status") == "ready":
-                        break
-            except OSError:
-                pass
-            time.sleep(1)
-        ready_s = time.time() - t0
+        ready_s = wait_ready(url, proc, "serve (see build/smoke_serve.log)")
         answers = [post(url + "/api/v1/query", {"query": q}) for q in titles]
         batch = post(url + "/api/v1/batch_search",
                      {"queries": list(titles), "k": 10})["results"]
@@ -1923,6 +1983,7 @@ def measure_build_steps(store, chunks, device, encode_docs, timed_steps):
     t0 = time.time()
     ids = enc.tokenize(texts)
     out["tokenize_docs_s"] = len(texts) / (time.time() - t0)
+    out["tokenizer_impl"] = enc.tokenizer_impl
     tiled = [ids[i % len(ids)] for i in range(encode_docs)]
     lengths = sorted(len(t) for t in tiled)
     out["encode"] = {}
@@ -2014,7 +2075,7 @@ def print_build(b: dict) -> None:
           f"({b['subset_cpu_s']:.1f} s): embeddings within {EMB_TOL} (max "
           f"abs err {b['subset_err']:.3g}), BM25 equal, corpus_hash equal",
           flush=True)
-    print(f"phase 9 ok: tokenizer (host, Python) "
+    print(f"phase 9 ok: tokenizer (host, {b['tokenizer_impl']}) "
           f"{b['tokenize_docs_s']:.0f} docs/s; encode of {b['encode_docs']} "
           f"chunks "
           f"(mean {b['mean_tokens']:.1f} WordPiece tokens, fp32, TF32 off): "
@@ -2285,6 +2346,232 @@ def print_eval(e: dict) -> None:
               f"{v['alphas'][str(v['best_alpha'])]['mrr']:.4f}"
               for split, v in ce.items()), flush=True)
 
+# phase 11: the build of phase 9's corpus and its stage seconds with the
+# Python tokenizer (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5)
+PYTHON_TOKENIZER_BUILD = ("61.3 s; build stages (s): ingest 0.021, finetune "
+                          "20.135, encode 3.108, tokens 2.829, pq 0.531, ivf "
+                          "0.011, bm25 0.427, rerank 29.209, save 3.075")
+# tests/test_native.py's adversarial inputs, and its full-Unicode fuzz
+# (native_fuzz_texts)
+NATIVE_ADVERSARIAL = (
+    "", "   ", "Hello, World!", "Café résumé naïve Łódź",
+    "§183 — the 'said' provision… (a) [b] {c}",
+    "word\u00adwith\u200bformat\u200cchars", "CJK 中文 mixed 漢字 text",
+    "x" * 250,
+    "UPPER lower MiXeD 123 45.67", "tabs\tand\nnewlines\r\nand  spaces",
+    "em—dash–hyphen-minus", "धारा १७३ के अनुसार। दंड प्रक्रिया।",
+    "İstanbul'da İĞNE ve ışık", "ΝΟΜΟΣ ΠΟΙΝΙΚΟΣ: Ο Σ ΣΤΟ ΤΕΛΟΣ",
+    "ΟΔΥΣΣΕΥΣ ΟΔΥΣΣΕΥΣΑ 'ΣΟΦΟΣ' (ΣΟΦΟΣ)", "УГОЛОВНЫЙ КОДЕКС статья",
+    "ʼn ǅungla ǲur ﬁne ﬂow", "áé combining, ﬀ ligature",
+    "豈 更 車 compatibility ideographs", "１２３ ＡＢＣ ｆｕｌｌｗｉｄｔｈ！？",
+)
+HYB_N = 1_000_000   # bench_hybrid_scale's docs: K1's two-phase path
+# few requests a client: the three servers' start-up already takes most of
+# the phase, and the whole smoke must stay well inside 1,200 s
+HTTP_ARGS = {"requests": 2, "levels": (1, 16), "no_coalesce_pass": True,
+             "no_rerank_pass": True}
+
+
+def native_fuzz_texts():
+    """300 random strings over 600 printable code points from all of
+    Unicode, some with a final sigma (tests/test_native.py's sweep)."""
+    import random
+    import unicodedata
+
+    rng = random.Random(7)
+    pool = []
+    while len(pool) < 600:
+        ch = chr(rng.randrange(0x20, 0x2FA20))
+        if not unicodedata.category(ch).startswith("C"):
+            pool.append(ch)
+    out = []
+    for _ in range(300):
+        t = "".join(rng.choice(pool) for _ in range(rng.randrange(1, 30)))
+        if rng.random() < 0.3:
+            t = t.replace(t[rng.randrange(len(t))], "Σ")
+        out.append(t)
+    return out
+
+
+def phase_native(b: dict) -> dict:
+    """The C++ tokenizer on the card's host: built by g++ from the
+    port's copy, recorded by phase 9's build (``native-cpp``, or the
+    run fails), ids equal to the Python tokenizer's on every chunk and
+    every adversarial and fuzz input, and both tokenizers' docs/s."""
+    from legal_rag_tpu_torch import native_ext
+    from legal_rag_tpu_torch.index.store import VectorStore
+    from legal_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
+
+    out = {}
+    t0 = time.time()
+    check(native_ext.build_native(), "g++ did not build the native "
+          f"tokenizer; see {native_ext.library_path().parent / 'g++.log'}")
+    out["build_s"] = time.time() - t0
+    out["library"] = os.path.relpath(native_ext.library_path(), REPO_ROOT)
+    check(out["library"].startswith("build" + os.sep), "library outside build/")
+    store = VectorStore.load(b["store_dir"])
+    out["impl"] = store.encoder_info.get("tokenizer_impl")
+    check(out["impl"] == "native-cpp", f"phase 9's store records the "
+          f"tokenizer {out['impl']!r}, not native-cpp")
+    py = WordPieceTokenizer(store.wp_vocab)
+    cc = native_ext.NativeWordPiece(store.wp_vocab)
+    texts = [c["text"] for c in store.chunks]
+    max_len = int(store.encoder_info["max_len"])
+    ids = {}
+    for name, tok in (("python", py), ("native-cpp", cc)):
+        t0 = time.time()
+        ids[name] = [tok.encode(t, max_len=max_len) for t in texts]
+        out[f"{name}_docs_s"] = len(texts) / (time.time() - t0)
+    check(ids["python"] == ids["native-cpp"], "native ids != Python ids on "
+          "the corpus")
+    odd = list(NATIVE_ADVERSARIAL) + native_fuzz_texts()
+    for t in odd:
+        check(cc.encode(t, max_len=64) == py.encode(t, max_len=64),
+              f"native ids != Python ids on {t!r}")
+    out["n_chunks"], out["n_odd"] = len(texts), len(odd)
+    return out
+
+
+def print_native(nat: dict, b: dict) -> None:
+    print(f"phase 11 ok: native tokenizer built by g++ from "
+          f"legal_rag_tpu_torch/native/wordpiece.cpp in {nat['build_s']:.2f} s"
+          f" into {nat['library']}; phase 9's store records tokenizer_impl "
+          f"{nat['impl']}; ids == the Python tokenizer's on all "
+          f"{nat['n_chunks']} chunks and {nat['n_odd']} adversarial and fuzz "
+          f"inputs; docs/s (host, max_len 256): native-cpp "
+          f"{nat['native-cpp_docs_s']:.0f}, python {nat['python_docs_s']:.0f};"
+          f" phase 9's build with it: {b['build_s']:.1f} s; {b['stages']} "
+          f"(with the Python tokenizer: {PYTHON_TOKENIZER_BUILD})", flush=True)
+
+
+def phase_benches(b: dict, device: str = "cuda", n: int = HYB_N) -> dict:
+    """bench_hybrid_scale at ``n`` docs (K1 on its dense stage, counted)
+    and bench_http over phase 9's store on ``device``."""
+    import numpy as np
+    import torch
+
+    from legal_rag_tpu_torch.scripts import bench_http, bench_hybrid_scale
+
+    out = {}
+    t0 = time.time()
+    reset_counts()
+    hyb = bench_hybrid_scale.run(
+        n, device=device,
+        log=lambda line: print(f"phase 12: {line}", flush=True))
+    out["counts"] = read_counts()
+    out["hybrid_s"] = time.time() - t0
+    check(device == "cpu" or (out["counts"]["K1"] > 0
+                              and hyb["k1_launches"] > 0),
+          f"bench_hybrid_scale never launched K1: {out['counts']}")
+    for key in ("sparse_recall", "overlap"):
+        check(math.isfinite(hyb[key]) and 0.0 <= hyb[key] <= 1.0,
+              f"bench_hybrid_scale {key} {hyb[key]}")
+    for name, (f, ids) in hyb["hybrid"].items():
+        check(f.shape == ids.shape == (bench_hybrid_scale.Q,
+                                       bench_hybrid_scale.K)
+              and bool(np.isfinite(f).all()),
+              f"bench_hybrid_scale {name} output")
+    out["hybrid"] = {k: hyb[k] for k in ("n", "nnz", "budgets", "gather_ms",
+                                         "sparse_recall", "hybrid_ms",
+                                         "overlap", "k1_launches")}
+    del hyb
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    log_path = os.path.join(REPO_ROOT, "build", "smoke_bench_http.log")
+    report = bench_http.run(
+        b["store_dir"], port=free_port(), device=device,
+        log=lambda line: print(f"phase 12: bench_http {line}", flush=True),
+        server_log=log_path, **HTTP_ARGS)
+    out["http_s"] = time.time() - t0
+    for name, rows in report["passes"].items():
+        for row in rows:
+            check(row["n_errors"] == 0 and row["n_requests"] == (
+                HTTP_ARGS["requests"] * row["concurrency"]),
+                f"bench_http {name} c={row['concurrency']}: "
+                f"{row.get('error_sample')} (log {log_path})")
+    check(len(report["passes"]) == 3, f"bench_http passes {report['passes']}")
+    check(report["provenance"]["platform"] == (
+        "cpu" if device == "cpu" else "gpu"), "bench_http provenance")
+    out["http"] = report
+    return out
+
+
+def print_benches(bn: dict) -> None:
+    h = bn["hybrid"]
+    print(f"phase 12 ok: bench_hybrid_scale at N={h['n']} (nnz {h['nnz']}, "
+          f"bf16 docs, Q=64, k=10, c=20, w=0.5) in {bn['hybrid_s']:.1f} s: "
+          f"hybrid ms a batch of 64 (median, CUDA events) capped "
+          f"{h['hybrid_ms']['capped']:.4f} (budget {h['budgets']['capped']}),"
+          f" uncapped {h['hybrid_ms']['uncapped']:.4f} (budget "
+          f"{h['budgets']['uncapped']}); host gather ms capped "
+          f"{h['gather_ms']['capped']:.1f}, uncapped "
+          f"{h['gather_ms']['uncapped']:.1f}; capped sparse recall@10 "
+          f"{h['sparse_recall']:.4f}, hybrid top-10 overlap capped vs "
+          f"uncapped {h['overlap']:.4f}; K1 launched {h['k1_launches']}x "
+          f"({bn['counts']['K1 tensor cores']}x on the tensor cores)",
+          flush=True)
+    rep = bn["http"]
+    print(f"phase 12 ok: bench_http over phase 9's store in "
+          f"{bn['http_s']:.1f} s ({HTTP_ARGS['requests']} requests a client;"
+          f" provenance {json.dumps(rep['provenance'], sort_keys=True)}), "
+          "zero errors: " + "; ".join(
+              f"{name} c={r['concurrency']}: p50 {r['p50_ms']} ms, p99 "
+              f"{r['p99_ms']} ms, {r['qps']} qps"
+              for name, rows in rep["passes"].items() for r in rows),
+          flush=True)
+
+
+def phase_entry_points(b: dict, names=("start_torch.sh",
+                                        "spaces_app_torch.py"),
+                       device: str = "cuda") -> dict:
+    """``start_torch.sh`` and ``spaces_app_torch.py`` (the one serves on
+    ``device``, the other on the card) over phase 9's store, each in a
+    process group of its own: ready on /health, one /api/v1/query
+    answered 200, then SIGTERM to the group."""
+    import signal
+
+    out = {}
+    cmds = {"start_torch.sh": ["bash", os.path.join(REPO_ROOT, "start_torch.sh")],
+            "spaces_app_torch.py": [sys.executable, os.path.join(
+                REPO_ROOT, "spaces_app_torch.py")]}
+    for name in names:
+        cmd = cmds[name]
+        port = free_port()
+        env = {k: v for k, v in os.environ.items() if "API_KEY" not in k}
+        env.update(LEGAL_RAG_STORE=b["store_dir"], PORT=str(port),
+                   PYTHON=sys.executable, LEGAL_RAG_DEVICE=device)
+        log_path = os.path.join(REPO_ROOT, "build", f"smoke_{name}.log")
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(cmd, cwd=REPO_ROOT, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        url = f"http://127.0.0.1:{port}"
+        try:
+            ready = wait_ready(url, proc, f"{name} (log {log_path})")
+            t0 = time.time()
+            body = post(url + "/api/v1/query", {"query": PROCEDURAL})
+            check(bool(body.get("context_used")), f"{name}: empty context")
+            out[name] = {"ready_s": ready, "query_s": time.time() - t0}
+        finally:
+            os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+        out[name]["rc"] = proc.returncode
+    return out
+
+
+def print_entry_points(ep: dict) -> None:
+    print("phase 13 ok: " + "; ".join(
+        f"{name} over phase 9's store ready in {e['ready_s']:.1f} s, "
+        f"/api/v1/query answered 200 in {e['query_s']:.2f} s, stopped by "
+        f"SIGTERM to its process group (exit {e['rc']})"
+        for name, e in ep.items()), flush=True)
+
+
 def ptxas_registers(log: str) -> str:
     """``kernel<template args>: N`` for every instantiation in an nvcc
     ``-Xptxas -v`` log."""
@@ -2415,8 +2702,8 @@ def main() -> int:
               for qp, t in times_i8.items()), flush=True)
 
     # -- 2c/2d. K2 against its plain version, and the recovery workload
-    err_pq, times_pq, recall, (t_data, t_train), times_w = phase_pq(
-        torch, args.seed)
+    err_pq, times_pq, recall, (t_data, t_train), times_w, times_sr = \
+        phase_pq(torch, args.seed)
     torch.cuda.empty_cache()
     print(f"phase 2c ok: K2 == plain within {PQ_TOL} (max abs err "
           f"{err_pq:.3g}) on {N_PQ} codes (m={PQ_M}, and random codes at m="
@@ -2430,6 +2717,13 @@ def main() -> int:
               f"m={m} Q={qp}: K2 {t['k2_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms" for (m, qp), t in times_w.items()),
           flush=True)
+    print(f"phase 2c ok: K2 == plain within {PQ_TOL} at seg_rows "
+          f"{', '.join(map(str, PQ_SEG_ROWS))} on the {N_PQ} codes (m={PQ_M})"
+          f" at Q {' and '.join(map(str, PQ_SEG_QS))}; pq_topk(seg_rows=16) "
+          f"top-10 == float64 ADC under the tie rule; seg_rows 16: " + "; ".join(
+              f"Q={qp}: K2 {t['k2_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"pq_topk top-10 {t['pq_topk_ms']:.4f} ms"
+              for qp, t in times_sr.items()), flush=True)
     print(f"phase 2d ok: recovery workload ({RECOVERY_N} clustered docs, "
           f"{RECOVERY_Q} queries, corpus {t_data:.1f} s, PQ + OPQ + IVF "
           f"trained and coded on the card in {t_train:.1f} s): post-rescore "
@@ -2615,6 +2909,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print_eval(ev)
 
+    # -- 11. the native tokenizer on the card's host, over phase 9's store
+    nat = phase_native(b)
+    print_native(nat, b)
+
+    # -- 12. the benches: bench_hybrid_scale at 1M docs (K1), bench_http
+    bn = phase_benches(b)
+    torch.cuda.empty_cache()
+    print_benches(bn)
+
+    # -- 13. the deployment entry points over phase 9's store
+    print_entry_points(phase_entry_points(b))
+
     check("jax" not in sys.modules, "the run imported jax")
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"
                      or m.startswith("legal_rag_tpu."))
@@ -2650,6 +2956,13 @@ def main() -> int:
          k1_t["k1_ms"], k1_t["plain_ms"],
          bound(n_rows * DIM * 4 + 8 * DIM * 4 + 8 * n_rows // 8 * 4,
                2 * 8 * n_rows * DIM, "fp32"), None),
+        # bench_hybrid_scale's dense stage: bf16 docs, 64 queries
+        ("segmax_rm tensor cores (K1, bench_hybrid_scale bf16 Q=64)",
+         "segmax_rm.cu", "legal_rag_tpu/ops/dense.py:495",
+         bn["counts"]["K1"], max_err, times[("bf16", 64)]["k1_ms"],
+         times[("bf16", 64)]["plain_ms"],
+         bound(N_ROWS * DIM * 2 + 64 * DIM * 2 + 64 * N_ROWS // 8 * 4,
+               2 * 64 * N_ROWS * DIM, "bf16"), None),
         ("segmax_rm int8 (K1-int8)", "segmax_rm.cu",
          "legal_rag_tpu/ops/dense.py:515", tier_counts["int8"]["K1-int8"],
          err_i8, k1_i8_t["k1_ms"], k1_i8_t["plain_ms"],
@@ -2660,6 +2973,15 @@ def main() -> int:
          k2_t["plain_ms"],
          bound(N_PQ * PQ_M + 8 * 2 * PQ_M * 16 * 2 + 8 * N_PQ // 8 * 4,
                8 * N_PQ * 2 * PQ_M, "fp32"), None),
+        # bench_pq's seg_rows-16 rows (phase 2i), timed at Q=64 over the
+        # 1M codes of phase 2c
+        ("pq_segmax (K2, seg_rows 16)", "pq_segmax.cu",
+         "legal_rag_tpu/ops/pq.py:257", sum(
+             r.get("k2_launches", 0) for r in ks["rows"]["bench_pq"]
+             if "sr=16" in r["name"]), err_pq, times_sr[64]["k2_ms"],
+         times_sr[64]["plain_ms"],
+         bound(N_PQ * PQ_M + 64 * 2 * PQ_M * 16 * 2 + 64 * N_PQ // 16 * 4,
+               64 * N_PQ * 2 * PQ_M, "fp32"), None),
         # the evaluation path: eval-retrieval's pq mode over the IVF cells
         ("pq_segmax (K2, eval pq mode)", "pq_segmax.cu",
          "legal_rag_tpu/ops/pq.py:257", ev["counts"]["K2"], ev["k2_err"],

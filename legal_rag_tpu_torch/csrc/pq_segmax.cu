@@ -7,10 +7,11 @@
 // values the TPU kernel reads), for doc rows r and queries q:
 //
 //   score[r, q] = sum over s < 2m of lut[q, s, nibble_s(codes[r])]
-//   out[q, g]   = max over r in [8g, 8g+8) of
+//   out[q, g]   = max over r in [S g, S g + S) of
 //                 (r < n_rows ? score[r, q] : -FLT_MAX)
 //
-// written query-major, [n_q, ceil(n_rows / 8)].
+// written query-major, [n_q, ceil(n_rows / S)], for a segment of S =
+// seg_rows rows, a power of two from 1 to 64 (K1's range).
 //
 // What bounds it: a doc is m bytes, so device memory would allow ~70 G
 // docs/s at m = 48, while every doc costs 2m table entries per query.
@@ -35,17 +36,21 @@
 // queries. The codes of a tile arrive as one contiguous [256, m] run by
 // cp.async (two stages, or one where shared memory is short); the
 // tables of the query tile stay resident, so QT shrinks as m grows
-// (2m * 16 * 2 bytes a query). The segment max is a max over the lane
-// groups that hold a segment's 8 rows (shfl_xor 4, 8, 16), rows past
-// n_rows masked first. A query tile past the last query skips its
-// empty n-tiles.
+// (2m * 16 * 2 bytes a query). The segment max follows K1's
+// (segmax_rm.cu store_segments): rows past n_rows masked first, then a
+// max over the lane groups that hold a segment's rows (shfl_xor 4, 8,
+// 16, as far as seg_rows reaches), over rows g and g + 8 (16 rows),
+// over the warp's two m-tiles (32), and for 64 rows over the
+// neighbouring warp, whose 32-row maxima come through the code stage
+// just read. A query tile past the last query skips its empty n-tiles.
 //
 // Past m = 300 not even 8 queries' tables fit beside the codes, so
 // wider codes go to a second kernel, pq_segmax_lookup_kernel: a thread a
 // doc, one shared-memory table read per (doc, query, subspace) (the 16
 // bf16 entries of a table row span 8 banks, so a warp's lanes never
-// conflict), the segment max over 8 adjacent threads by shuffles. The
-// wrapper picks by the code width.
+// conflict), the segment max over seg_rows adjacent threads by shuffles
+// (for 64 rows, two warps through 64 bytes of shared memory past the
+// tables). The wrapper picks by the code width.
 //
 // Numerics: the sums of bf16 entries run in fp32, in the tensor cores'
 // order or in subspace order, so they can differ from the plain
@@ -66,6 +71,7 @@ constexpr int kTile = 256;        // docs a block tile (32 a warp)
 constexpr int kMT = 2;            // m-tiles a warp
 constexpr int kLookupThreads = 512;   // the lookup kernel: a doc a thread
 constexpr int kLookupMaxQ = 64;       // its most queries a block
+constexpr int kLookupXchBytes = 2 * (kLookupThreads / 64) * 4;   // 64-row exchange
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kOne = 0x3f80u;          // bf16 1.0
 
@@ -107,7 +113,9 @@ __device__ __forceinline__ void copy_any(int vec, char* dst, const char* src,
   }
 }
 
-template <int NT>
+// NT n-tiles of 8 queries; SR = seg_rows, a template argument so that
+// each segment's reduction compiles to its own fixed steps
+template <int NT, int SR>
 __global__ void __launch_bounds__(kThreads)
 pq_segmax_kernel(const uint8_t* __restrict__ codes,
                  const unsigned short* __restrict__ lut,   // [n_q, 2m, 16]
@@ -153,7 +161,7 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
   // ldmatrix row addresses into the tables: pairs of n-tiles (x4) and a
   // last single one (x2)
   const char* b_l = tab + ((lane & 7) + (lane >> 4) * 8) * tp + ((lane >> 3) & 1) * 16;
-  const long long n_segs = (n_rows + 7) / 8;
+  const long long n_segs = (n_rows + SR - 1) / SR;
   const int words = m / 4;
 
   for (long long it = 0; it < my_tiles; ++it) {
@@ -221,8 +229,7 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
       }
     }
 
-    // mask rows past n_rows, max over each segment's 8 rows (lane
-    // groups g), store from the lanes of group 0
+    // mask rows past n_rows, then each segment's max (module note)
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -234,7 +241,7 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
             acc[mt][nt][2 * h + 1] = -FLT_MAX;
           }
 #pragma unroll
-    for (int x = 4; x < 32; x <<= 1)
+    for (int x = 4; x < 32 && (x >> 2) < SR; x <<= 1)
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -242,12 +249,56 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             acc[mt][nt][i] = fmaxf(acc[mt][nt][i], __shfl_xor_sync(kFullMask, acc[mt][nt][i], x));
-    if (g == 0) {
+    if constexpr (SR >= 16) {        // rows g and g + 8 of an m-tile
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long seg = (row0 + mt * 16) / 8 + h;
+        for (int nt = 0; nt < NT; ++nt) {
+          acc[mt][nt][0] = fmaxf(acc[mt][nt][0], acc[mt][nt][2]);
+          acc[mt][nt][1] = fmaxf(acc[mt][nt][1], acc[mt][nt][3]);
+        }
+    }
+    if constexpr (SR >= 32) {        // the warp's two m-tiles
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) acc[0][nt][i] = fmaxf(acc[0][nt][i], acc[1][nt][i]);
+    }
+    if constexpr (SR == 64) {
+      // warps 2p and 2p + 1 hold one segment: the odd one hands its
+      // maxima to the even one through the stage every warp has read
+      float* xch = reinterpret_cast<float*>(const_cast<char*>(ct)) + (warp >> 1) * QT;
+      __syncthreads();
+      if ((warp & 1) && g == 0) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) xch[nt * 8 + 2 * t + j] = acc[0][nt][j];
+      }
+      __syncthreads();
+      if (!(warp & 1) && g == 0) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            acc[0][nt][j] = fmaxf(acc[0][nt][j], xch[nt * 8 + 2 * t + j]);
+      }
+    }
+    // one lane group of each segment stores: m-tile halves up to 8 rows
+    // (below 8, each lane group g % SR == 0 its own row's), whole
+    // m-tiles at 16, the first m-tile above. The segment index keeps h
+    // out of the division: (row0 + 16 mt + 8 h) / 8 gave seg_rows 8 a
+    // different register allocation, 4-6% slower at 8 queries (H100)
+    constexpr int sr8 = SR < 8 ? SR : 8;
+    constexpr int halves = SR >= 16 ? 1 : 2;
+    constexpr int mts = SR >= 32 ? 1 : kMT;
+    if ((SR >= 8 ? g == 0 : g % SR == 0) && (SR < 64 || !(warp & 1))) {
+      const int lane_row = SR < 8 ? static_cast<int>(g) : 0;
+#pragma unroll
+      for (int mt = 0; mt < mts; ++mt)
+#pragma unroll
+        for (int h = 0; h < halves; ++h) {
+          const long long seg = (row0 + mt * 16 + lane_row) / SR + h * (8 / sr8);
           if (seg >= n_segs) continue;
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt)
@@ -267,12 +318,12 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
   mma::cp_async_wait<0>();
 }
 
-template <int NT>
+template <int NT, int SR>
 cudaError_t launch(const void* codes, const void* lut, float* out,
                    long long n_rows, int m, int n_q, int stages, int vec_c,
                    size_t smem, int device, cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
-  auto kernel = pq_segmax_kernel<NT>;
+  auto kernel = pq_segmax_kernel<NT, SR>;
   cudaError_t err = setup::allow_max_smem(kernel, device, ready);
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
@@ -296,6 +347,33 @@ cudaError_t launch(const void* codes, const void* lut, float* out,
   return cudaGetLastError();
 }
 
+template <int NT>
+cudaError_t launch_tile(const void* codes, const void* lut, float* out,
+                        long long n_rows, int m, int n_q, int seg_rows,
+                        int stages, int vec_c, size_t smem, int device,
+                        cudaStream_t stream) {
+  switch (seg_rows) {
+    case 1: return launch<NT, 1>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
+    case 2: return launch<NT, 2>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
+    case 4: return launch<NT, 4>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
+    case 8: return launch<NT, 8>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
+    case 16: return launch<NT, 16>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
+    case 32: return launch<NT, 32>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
+    case 64: return launch<NT, 64>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool valid_seg_rows(int seg_rows) {
+  return seg_rows >= 1 && seg_rows <= 64 && (seg_rows & (seg_rows - 1)) == 0;
+}
+
+// the lookup kernel's dynamic shared memory: the query tile's tables,
+// and at 64 rows a segment the warps' exchange
+long long lookup_smem_bytes(int m, int q_tile, int seg_rows) {
+  return static_cast<long long>(q_tile) * 64 * m + (seg_rows == 64 ? kLookupXchBytes : 0);
+}
+
 }  // namespace
 
 // bf16 is the upper half of an fp32: widening is a 16-bit shift
@@ -309,27 +387,33 @@ __global__ void __launch_bounds__(kLookupThreads)
 pq_segmax_lookup_kernel(const uint8_t* __restrict__ codes,
                         const unsigned short* __restrict__ lut,   // [n_q, 2m, 16]
                         float* __restrict__ out, long long n_rows, int m,
-                        int n_q, int q_tile_max) {
+                        int n_q, int q_tile_max, int seg_rows) {
   const int words = m / 4;
   const int lut_len = 32 * m;                // table entries a query
   extern __shared__ unsigned short tab[];    // [q_tile, 2m, 16]
+  // at 64 rows a segment: a float per warp pair, two turns deep
+  float* xch = reinterpret_cast<float*>(tab + q_tile_max * lut_len);
   const int q0 = blockIdx.y * q_tile_max;
   const int q_tile = min(q_tile_max, n_q - q0);
   const unsigned short* src = lut + static_cast<long long>(q0) * lut_len;
   for (int i = threadIdx.x; i < q_tile * lut_len; i += kLookupThreads) tab[i] = src[i];
   __syncthreads();
 
-  const long long n_segs = (n_rows + 7) / 8;
+  const long long n_segs = (n_rows + seg_rows - 1) / seg_rows;
+  const long long n_pad = n_segs * seg_rows;
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const long long stride = static_cast<long long>(gridDim.x) * kLookupThreads;
-  // every thread of a warp runs the same number of iterations (the
-  // loop bound is a multiple of 32), so the shuffles see full warps
-  for (long long row = static_cast<long long>(blockIdx.x) * kLookupThreads + threadIdx.x;
-       row - lane < n_segs * 8; row += stride) {
+  int turn = 0;
+  // every thread of a block runs the same iterations (the bound is the
+  // block's first row), so shuffles see full warps and barriers all
+  // threads
+  for (long long base = static_cast<long long>(blockIdx.x) * kLookupThreads;
+       base < n_pad; base += stride) {
+    const long long row = base + threadIdx.x;
     const bool valid = row < n_rows;
     const uint32_t* r = reinterpret_cast<const uint32_t*>(codes + row * m);
-    const long long seg = row / 8;
-    for (int q = 0; q < q_tile; ++q) {
+    for (int q = 0; q < q_tile; ++q, ++turn) {
       const unsigned short* t = tab + q * lut_len;
       float acc = 0.f;
       for (int i = 0; i < words; ++i) {
@@ -340,10 +424,16 @@ pq_segmax_lookup_kernel(const uint8_t* __restrict__ codes,
         }
       }
       float v = valid ? acc : -FLT_MAX;
-#pragma unroll
-      for (int x = 1; x < 8; x <<= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, x));
-      if ((row & 7) == 0 && seg < n_segs) {
-        out[static_cast<long long>(q0 + q) * n_segs + seg] = v;
+      for (int x = 1; x < 32 && x < seg_rows; x <<= 1)
+        v = fmaxf(v, __shfl_xor_sync(kFullMask, v, x));
+      if (seg_rows == 64) {
+        float* slot = xch + (turn & 1) * (kLookupThreads / 64) + (warp >> 1);
+        if (lane == 0 && (warp & 1)) *slot = v;
+        __syncthreads();
+        if (lane == 0 && !(warp & 1)) v = fmaxf(v, *slot);
+      }
+      if (row % seg_rows == 0 && row < n_pad) {
+        out[static_cast<long long>(q0 + q) * n_segs + row / seg_rows] = v;
       }
     }
   }
@@ -351,10 +441,11 @@ pq_segmax_lookup_kernel(const uint8_t* __restrict__ codes,
 
 static cudaError_t launch_lookup(const void* codes, const void* lut,
                                  float* out, long long n_rows, int m, int n_q,
-                                 int q_tile, int device, cudaStream_t stream) {
+                                 int q_tile, int seg_rows, int device,
+                                 cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
   auto kernel = pq_segmax_lookup_kernel;
-  const size_t smem = static_cast<size_t>(q_tile) * 32 * m * sizeof(unsigned short);
+  const size_t smem = static_cast<size_t>(lookup_smem_bytes(m, q_tile, seg_rows));
   cudaError_t err = setup::allow_max_smem(kernel, device, ready);
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
@@ -364,7 +455,7 @@ static cudaError_t launch_lookup(const void* codes, const void* lut,
   if (err != cudaSuccess) return err;
   // persistent blocks: each stages its query tile's tables once, then
   // walks the rows with a grid stride
-  const long long n_pad = (n_rows + 7) / 8 * 8;
+  const long long n_pad = (n_rows + seg_rows - 1) / seg_rows * seg_rows;
   long long blocks = (n_pad + kLookupThreads - 1) / kLookupThreads;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (blocks > resident) blocks = resident;
@@ -373,7 +464,8 @@ static cudaError_t launch_lookup(const void* codes, const void* lut,
                   static_cast<unsigned>((n_q + q_tile - 1) / q_tile));
   kernel<<<grid, kLookupThreads, smem, stream>>>(
       static_cast<const uint8_t*>(codes),
-      static_cast<const unsigned short*>(lut), out, n_rows, m, n_q, q_tile);
+      static_cast<const unsigned short*>(lut), out, n_rows, m, n_q, q_tile,
+      seg_rows);
   return cudaGetLastError();
 }
 
@@ -384,16 +476,16 @@ extern "C" int pq_segmax_smem_bytes(int m, int qt, int stages) {
 }
 
 // codes [n_rows, m] uint8 row-major (m % 4 == 0; 4-byte aligned), lut
-// [n_q, 2m, 16] bf16 (16-byte aligned), out [n_q, ceil(n_rows / 8)]
-// float32; qt (8, 16, 32 or 64) queries a block, stages (1 or 2) code
-// tiles in flight, vec_c the copy width (16, 8 or 4) the codes' base
-// address allows. Returns the CUDA error of the launch (0 on success);
+// [n_q, 2m, 16] bf16 (16-byte aligned), out [n_q, ceil(n_rows /
+// seg_rows)] float32, seg_rows 1, 2, 4, 8, 16, 32 or 64; qt (8, 16, 32
+// or 64) queries a block, stages (1 or 2) code tiles in flight, vec_c
+// the copy width (16, 8 or 4) the codes' base address allows. Returns the CUDA error of the launch (0 on success);
 // the kernel runs asynchronously on ``stream``.
 extern "C" int pq_segmax_launch(const void* codes, const void* lut,
                                 float* out, long long n_rows, int m,
-                                int n_q, int qt, int stages, int vec_c,
-                                int device, void* stream) {
-  if (n_rows < 1 || n_q < 1 || m < 4 || m % 4 != 0 ||
+                                int n_q, int seg_rows, int qt, int stages,
+                                int vec_c, int device, void* stream) {
+  if (n_rows < 1 || n_q < 1 || m < 4 || m % 4 != 0 || !valid_seg_rows(seg_rows) ||
       (stages != 1 && stages != 2) || (vec_c != 16 && vec_c != 8 && vec_c != 4) ||
       (n_q + qt - 1) / qt > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -405,27 +497,32 @@ extern "C" int pq_segmax_launch(const void* codes, const void* lut,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
   switch (qt) {
-    case 8: err = launch<1>(codes, lut, out, n_rows, m, n_q, stages, vec_c, sm, device, s); break;
-    case 16: err = launch<2>(codes, lut, out, n_rows, m, n_q, stages, vec_c, sm, device, s); break;
-    case 32: err = launch<4>(codes, lut, out, n_rows, m, n_q, stages, vec_c, sm, device, s); break;
-    case 64: err = launch<8>(codes, lut, out, n_rows, m, n_q, stages, vec_c, sm, device, s); break;
+    case 8: err = launch_tile<1>(codes, lut, out, n_rows, m, n_q, seg_rows, stages, vec_c, sm, device, s); break;
+    case 16: err = launch_tile<2>(codes, lut, out, n_rows, m, n_q, seg_rows, stages, vec_c, sm, device, s); break;
+    case 32: err = launch_tile<4>(codes, lut, out, n_rows, m, n_q, seg_rows, stages, vec_c, sm, device, s); break;
+    case 64: err = launch_tile<8>(codes, lut, out, n_rows, m, n_q, seg_rows, stages, vec_c, sm, device, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
+// Dynamic shared memory of the lookup kernel, bytes, for m, the query
+// tile q_tile and seg_rows.
+extern "C" int pq_segmax_lookup_smem_bytes(int m, int q_tile, int seg_rows) {
+  return static_cast<int>(lookup_smem_bytes(m, q_tile, seg_rows));
+}
+
 // The lookup kernel (codes too wide for the tensor-core kernel's tables):
-// codes and out as pq_segmax_launch; q_tile (at most 64, and
-// 32 * m * 2 * q_tile bytes of tables within a block's shared memory)
-// queries a block. Returns the CUDA error of the
-// launch (0 on success).
+// codes, out and seg_rows as pq_segmax_launch; q_tile (at most 64, and
+// pq_segmax_lookup_smem_bytes within a block's shared memory) queries a
+// block. Returns the CUDA error of the launch (0 on success).
 extern "C" int pq_segmax_lookup_launch(const void* codes, const void* lut,
                                        float* out, long long n_rows, int m,
-                                       int n_q, int q_tile, int device,
-                                       void* stream) {
+                                       int n_q, int seg_rows, int q_tile,
+                                       int device, void* stream) {
   if (n_rows < 1 || n_q < 1 || m < 4 || m % 4 != 0 || q_tile < 1 ||
-      q_tile > kLookupMaxQ ||
-      static_cast<long long>(q_tile) * 64 * m > setup::kMaxSmemBytes ||
+      q_tile > kLookupMaxQ || !valid_seg_rows(seg_rows) ||
+      lookup_smem_bytes(m, q_tile, seg_rows) > setup::kMaxSmemBytes ||
       (n_q + q_tile - 1) / q_tile > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -433,5 +530,5 @@ extern "C" int pq_segmax_lookup_launch(const void* codes, const void* lut,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(launch_lookup(codes, lut, out, n_rows, m, n_q, q_tile,
-                                        device, s));
+                                        seg_rows, device, s));
 }

@@ -340,7 +340,8 @@ def _encode_token_embeddings(
     with torch.inference_mode():
         for lo in range(0, n, batch_size):
             batch = list(texts[lo : lo + batch_size])
-            ids, am = encoder.tokenizer.encode_batch(batch, max_len=max_len)
+            ids, am = encoder.fast_tokenizer.encode_batch(batch,
+                                                          max_len=max_len)
             te = minilm_token_embeddings(
                 encoder.model, torch.from_numpy(ids).to(dev),
                 torch.from_numpy(am).to(dev),

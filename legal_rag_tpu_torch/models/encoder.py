@@ -12,8 +12,12 @@ over a vocab built from ``vocab_corpus``, as the JAX package's random
 init is. The two inits draw different numbers from one seed (the
 builder fingerprints a build without given weights apart).
 
-The port tokenizes in Python; the JAX package's C++ tokenizer binding
-is not ported yet (the two agree on ASCII text).
+Tokenizers: the C++ WordPiece (``native_ext.NativeWordPiece``, built
+on first use) where it builds and ``prefer_tokenizer`` allows it, else
+the Python one, as the JAX constructor chooses; ``tokenizer_impl``
+names the one ``tokenize`` and ``encode`` use. The two agree on every
+tested input (``tests/test_torch_native.py``) but may differ on exotic
+non-Latin text, so a store records its choice and the engine pins it.
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ class SentenceEncoder:
     Weight sources, in order of preference: ``params`` (the JAX param
     pytree), else the numpy init from ``seed`` with the word table sized
     to the tokenizer. The tokenizer is ``tokenizer``, else a vocab built
-    from ``vocab_corpus``. ``prefer_tokenizer`` takes the JAX
-    constructor's values; ``"native-cpp"`` warns and tokenizes in Python.
+    from ``vocab_corpus``; ``prefer_tokenizer`` (the JAX constructor's
+    values) picks its implementation: ``"auto"`` and ``"native-cpp"`` the
+    C++ one where it builds (``"native-cpp"`` warns where it does not),
+    ``"python"`` never.
     """
 
     def __init__(
@@ -59,12 +65,6 @@ class SentenceEncoder:
     ):
         if prefer_tokenizer not in ("auto", "python", "native-cpp"):
             raise ValueError(f"unknown prefer_tokenizer {prefer_tokenizer!r}")
-        if prefer_tokenizer == "native-cpp":
-            logging.getLogger("legal_rag_tpu_torch.encoder").warning(
-                "store was built with the native-cpp tokenizer, which the "
-                "port does not have; tokenizing in Python (tokenizations "
-                "may differ on non-Latin input)"
-            )
         cfg = cfg or EncoderConfig()
         self.seed = seed
         if tokenizer is None:
@@ -73,6 +73,23 @@ class SentenceEncoder:
                 build_wordpiece_vocab(corpus, size=cfg.vocab_size)
             )
         self.tokenizer = tokenizer
+        self._fast_tokenizer = None
+        if prefer_tokenizer != "python":
+            try:
+                from legal_rag_tpu_torch import native_ext
+
+                if native_ext.native_available():
+                    self._fast_tokenizer = native_ext.NativeWordPiece(
+                        tokenizer.vocab
+                    )
+            except Exception:  # noqa: BLE001 — an accelerator only
+                self._fast_tokenizer = None
+            if prefer_tokenizer == "native-cpp" and self._fast_tokenizer is None:
+                logging.getLogger("legal_rag_tpu_torch.encoder").warning(
+                    "store was built with the native-cpp tokenizer but it "
+                    "is unavailable here; falling back to pure Python "
+                    "(tokenizations may differ on non-Latin input)"
+                )
         if params is None:
             # size the word table to the tokenizer so ids index in range
             cfg = dataclasses.replace(
@@ -88,14 +105,22 @@ class SentenceEncoder:
 
     @property
     def tokenizer_impl(self) -> str:
-        """Which tokenizer implementation encode() uses, recorded in the
-        store manifest: always the Python one in the port."""
-        return "python"
+        """Which tokenizer implementation encode() uses — recorded in
+        the store manifest so query-side tokenization always matches
+        the one that embedded the documents."""
+        return "native-cpp" if self._fast_tokenizer is not None else "python"
+
+    @property
+    def fast_tokenizer(self):
+        """The tokenizer of ``tokenize`` and ``encode``: the C++ one where
+        it was taken, else the Python one."""
+        return self._fast_tokenizer or self.tokenizer
 
     def tokenize(self, texts: Sequence[str]) -> List[np.ndarray]:
         """Token ids of each text, int32, at most ``cfg.max_len``."""
+        tokenizer = self.fast_tokenizer
         return [
-            np.asarray(self.tokenizer.encode(t, max_len=self.cfg.max_len),
+            np.asarray(tokenizer.encode(t, max_len=self.cfg.max_len),
                        np.int32)
             for t in texts
         ]

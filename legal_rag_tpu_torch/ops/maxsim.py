@@ -248,7 +248,7 @@ class MultiVectorSearcher:
         )
 
     def _tokenize(self, texts):
-        return self.encoder.tokenizer.encode_batch(
+        return self.encoder.fast_tokenizer.encode_batch(
             list(texts), max_len=min(self.encoder.cfg.max_len, 128)
         )
 

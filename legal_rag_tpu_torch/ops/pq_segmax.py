@@ -5,10 +5,12 @@ For packed codes ``codes [N, m]`` (byte ``b`` holds nibble subspaces
 ``lut [Q, 2m, 16]``, :func:`pq_segmax` computes::
 
     score[r, q]  = sum over s of lut[q, s, nibble_s(codes[r])]
-    seg_max[q, g] = max over r in [8g, 8g+8) of
+    seg_max[q, g] = max over r in [S g, S g + S) of
                     (r < N ? score[r, q] : finfo.min)
 
-query-major, ``[Q, ceil(N / 8)]`` float32. It replaces the TPU kernel
+query-major, ``[Q, ceil(N / S)]`` float32, for segments of ``S =
+seg_rows`` rows (8 by default; the kernels take the powers of two 1-64,
+as K1 does). It replaces the TPU kernel
 ``legal_rag_tpu/ops/pq.py _pq_segmax_kernel``; the tables are the bf16
 values that kernel reads, summed in fp32.
 
@@ -37,7 +39,8 @@ import torch
 
 from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
-SEG_ROWS = 8                          # the kernel's segment: 8 rows
+SEG_ROWS = 8                          # the default segment: 8 rows
+SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16, 32, 64)   # the segments the kernels take
 QUERY_TILES = (64, 32, 16, 8)         # the kernel's builds, widest first
 MAX_SMEM = 232_448                    # dynamic shared memory a block can take
 _TILE = 256                           # docs a tensor-core block tile
@@ -79,6 +82,14 @@ def launch_plan(m: int, n_q: int) -> Plan:
 # queries, one stage) and the lookup kernel (one query)
 TC_MAX_M = max(m for m in range(4, 1024, 4) if smem_bytes(m, 8, 1) <= MAX_SMEM)
 MAX_M = MAX_SMEM // 64 // 4 * 4
+_LOOKUP_XCH = 64                      # the lookup kernel's 64-row exchange
+
+
+def lookup_smem_bytes(m: int, q_tile: int, seg_rows: int) -> int:
+    """The lookup kernel's shared memory: ``q_tile`` queries' tables
+    and, at 64 rows a segment, 64 bytes where two warps meet;
+    ``pq_segmax.cu lookup_smem_bytes`` computes the same."""
+    return q_tile * 64 * m + (_LOOKUP_XCH if seg_rows == 64 else 0)
 
 
 def unpack_nibbles(codes: torch.Tensor) -> torch.Tensor:
@@ -113,21 +124,23 @@ K2 = CudaKernel("pq_segmax", "pq_segmax.cu", {
     "pq_segmax_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
     "pq_segmax_smem_bytes": [ctypes.c_int] * 3,
+    "pq_segmax_lookup_smem_bytes": [ctypes.c_int] * 3,
     "pq_segmax_lookup_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
 })
 
 
-def lookup_tile(m: int, n_q: int) -> int:
+def lookup_tile(m: int, n_q: int, seg_rows: int = SEG_ROWS) -> int:
     """The lookup kernel's queries a block: all of them up to 64, as
-    many as 232,448 bytes of tables hold."""
-    return max(1, min(_LOOKUP_MAX_TILE, n_q, MAX_SMEM // (64 * m)))
+    many as 232,448 bytes of shared memory hold."""
+    room = MAX_SMEM - lookup_smem_bytes(m, 0, seg_rows)
+    return max(1, min(_LOOKUP_MAX_TILE, n_q, room // (64 * m)))
 
 
 def pq_segmax(
@@ -157,11 +170,14 @@ def pq_segmax(
             f"pq_segmax: lut {tuple(lut.shape)} does not match m={m} "
             f"(want [Q, {2 * m}, 16])"
         )
-    if seg_rows != SEG_ROWS:
-        raise ValueError(f"pq_segmax: the kernel takes seg_rows={SEG_ROWS}")
-    if m % 4 or not 0 < m <= MAX_M:
+    if seg_rows not in SUPPORTED_SEG_ROWS:
+        raise ValueError(f"pq_segmax: seg_rows={seg_rows}; the kernels take "
+                         f"{SUPPORTED_SEG_ROWS}")
+    if m % 4 or not 0 < m <= MAX_M or (
+            m > TC_MAX_M and lookup_smem_bytes(m, 1, seg_rows) > MAX_SMEM):
         raise ValueError(f"pq_segmax: m={m}; the kernel takes m % 4 == 0 "
-                         f"up to {MAX_M}")
+                         f"up to {MAX_M} (at seg_rows 64, one query's "
+                         "tables and the warps' exchange must fit)")
     if n == 0 or q == 0:
         raise ValueError(f"pq_segmax: need N > 0 and Q > 0 (got {n}, {q})")
     if not (codes.is_contiguous() and lut.is_contiguous()):
@@ -170,25 +186,25 @@ def pq_segmax(
         raise ValueError("pq_segmax: codes must be 4-byte and lut 16-byte "
                          "aligned")
     if m <= TC_MAX_M:
-        return _launch_tensor_cores(lut, codes)
-    return _launch_lookup(lut, codes)
+        return _launch_tensor_cores(lut, codes, seg_rows)
+    return _launch_lookup(lut, codes, seg_rows)
 
 
-def _launch_tensor_cores(lut: torch.Tensor,
-                         codes: torch.Tensor) -> torch.Tensor:
+def _launch_tensor_cores(lut: torch.Tensor, codes: torch.Tensor,
+                         seg_rows: int = SEG_ROWS) -> torch.Tensor:
     """The tensor-core kernel (m <= TC_MAX_M) on inputs :func:`pq_segmax`
     has checked (tests call it beside the lookup kernel)."""
     n, m = codes.shape
     q = lut.shape[0]
-    out = torch.empty((q, -(-n // SEG_ROWS)), dtype=torch.float32,
+    out = torch.empty((q, -(-n // seg_rows)), dtype=torch.float32,
                       device=codes.device)
     plan = launch_plan(m, q)
     ptr = codes.data_ptr()
     vec = 16 if ptr % 16 == 0 else 8 if ptr % 8 == 0 else 4
     dev = codes.device.index or 0
     err = K2.library().pq_segmax_launch(
-        ptr, lut.data_ptr(), out.data_ptr(), n, m, q, plan.query_tile,
-        plan.stages, vec, dev, current_stream(dev),
+        ptr, lut.data_ptr(), out.data_ptr(), n, m, q, seg_rows,
+        plan.query_tile, plan.stages, vec, dev, current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"pq_segmax kernel launch failed: CUDA error {err}")
@@ -196,17 +212,18 @@ def _launch_tensor_cores(lut: torch.Tensor,
     return out
 
 
-def _launch_lookup(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+def _launch_lookup(lut: torch.Tensor, codes: torch.Tensor,
+                   seg_rows: int = SEG_ROWS) -> torch.Tensor:
     """The lookup kernel (any m up to MAX_M) on inputs :func:`pq_segmax`
     has checked."""
     n, m = codes.shape
     q = lut.shape[0]
-    out = torch.empty((q, -(-n // SEG_ROWS)), dtype=torch.float32,
+    out = torch.empty((q, -(-n // seg_rows)), dtype=torch.float32,
                       device=codes.device)
     dev = codes.device.index or 0
     err = K2.library().pq_segmax_lookup_launch(
-        codes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, m, q,
-        lookup_tile(m, q), dev, current_stream(dev),
+        codes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, m, q, seg_rows,
+        lookup_tile(m, q, seg_rows), dev, current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"pq_segmax kernel launch failed: CUDA error {err}")

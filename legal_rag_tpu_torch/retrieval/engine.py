@@ -89,10 +89,13 @@ class RetrievalEngine:
             enc_cfg = config.encoder
             # the store records the encoder that built its embeddings;
             # query encoding must match it
+            prefer_tok = "auto"
             if store.encoder_info:
                 info = dict(store.encoder_info)
                 info.pop("seed", None)
-                info.pop("tokenizer_impl", None)
+                # pin the tokenizer implementation that embedded the
+                # docs (python vs native-cpp diverge on non-Latin text)
+                prefer_tok = info.pop("tokenizer_impl", "auto")
                 enc_cfg = dataclasses.replace(
                     enc_cfg, **{
                         k: v for k, v in info.items()
@@ -107,7 +110,7 @@ class RetrievalEngine:
             encoder = SentenceEncoder(
                 cfg=enc_cfg, params=store.encoder_params,
                 tokenizer=WordPieceTokenizer(store.wp_vocab),
-                device=self.device,
+                prefer_tokenizer=prefer_tok, device=self.device,
             )
         if encoder.cfg.hidden != store.dim:
             raise ValueError(
@@ -354,7 +357,7 @@ class RetrievalEngine:
         the JAX engine. Returns ``(tokens [Q, Tq, D], mask [Q, Tq] numpy,
         pooled [Q, D])``, the tensors on the engine's device."""
         td = int(self.store.mv_tokens.shape[1])
-        ids, am = self.encoder.tokenizer.encode_batch(
+        ids, am = self.encoder.fast_tokenizer.encode_batch(
             list(queries), max_len=min(self.encoder.cfg.max_len, td)
         )
         dev = self.device

@@ -4,10 +4,9 @@ D=384, m=48, 64 queries, k=80 candidates.
 
 1. Speed on random codes (the compute profile of trained ones):
    ``pq_topk`` and its phase 1 alone, kernel K2 (``pq_segmax``), with
-   the codes' GB/s. The JAX script swept (block_n, seg_rows) in
-   {(4096, 8), (4096, 16)}: ``block_n`` is the TPU kernel's tiling and
-   K2 builds segments of 8 rows only (``ops/pq_segmax.py SEG_ROWS``), so
-   seg_rows 16 is a row with a note.
+   the codes' GB/s, at seg_rows 8 and 16, with K2's launches a row. The JAX script swept
+   (block_n, seg_rows) in {(4096, 8), (4096, 16)}; ``block_n`` is the
+   TPU kernel's tiling and has no counterpart here.
 2. Candidate recall@10 of ``pq_topk``'s k=80 against the exact fp32
    top-10, 16 queries, on 200,000 clustered docs (OPQ trained on them).
 3. IVF at the full N on clustered docs: the flat scan and the IVF
@@ -36,16 +35,15 @@ import numpy as np
 import torch
 
 from legal_rag_tpu_torch.ops.pq import build_ivf, encode_pq, pq_lut, pq_topk
-from legal_rag_tpu_torch.ops.pq_segmax import SEG_ROWS, pq_segmax
-from legal_rag_tpu_torch.scripts.exp_common import (
-    Log, card_main, note_row, timed_row,
-)
+from legal_rag_tpu_torch.ops.pq_segmax import K2, pq_segmax
+from legal_rag_tpu_torch.scripts.exp_common import Log, card_main, timed_row
 from legal_rag_tpu_torch.scripts.exp_ivf_recovery import (
     CELL_SIZE, TrainFn, ivf_search, train_opq,
 )
 
 N = 1_000_000
 D, MB, Q, K = 384, 48, 64, 80
+SPEED_SEG_ROWS = (8, 16)        # the JAX script's sweep
 RECALL_DOCS = 200_000
 PROBES = (32, 64, 128)
 RECALL_Q = 16
@@ -93,16 +91,17 @@ def run(n: int = N, recall_docs: int = RECALL_DOCS,
         rng.standard_normal((Q, D)).astype(np.float32)).to(device)
     lut = pq_lut(q, cbs).to(torch.bfloat16).contiguous()
     gb = n * MB
-    rows = [
-        timed_row(f"pq_topk sr={SEG_ROWS} Q={Q} k={K}",
-                  lambda: pq_topk(q, codes, cbs, K), device, log, *timing,
-                  n_bytes=gb),
-        timed_row(f"K2 pq_segmax sr={SEG_ROWS} Q={Q}",
-                  lambda: pq_segmax(lut, codes), device, log, *timing,
-                  n_bytes=gb),
-        note_row("pq_topk sr=16", "not run: K2 builds segments of "
-                 f"{SEG_ROWS} rows; block_n is the TPU's tiling", log),
-    ]
+    rows = []
+    for sr in SPEED_SEG_ROWS:
+        for name, fn in (
+            (f"pq_topk sr={sr} Q={Q} k={K}",
+             lambda sr=sr: pq_topk(q, codes, cbs, K, seg_rows=sr)),
+            (f"K2 pq_segmax sr={sr} Q={Q}",
+             lambda sr=sr: pq_segmax(lut, codes, sr)),
+        ):
+            before = K2.launches
+            rows.append(timed_row(name, fn, device, log, *timing, n_bytes=gb))
+            rows[-1]["k2_launches"] = K2.launches - before
     del codes, lut
 
     # -- 2. candidate recall on trained codes of clustered data

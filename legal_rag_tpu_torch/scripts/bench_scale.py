@@ -1,15 +1,15 @@
 """Large-N dense backend shootout on one CUDA card.
 
-Synthetic unit-row corpora of N docs x 384 dims stored in bf16, 64
-queries, k=10, at several N (``BENCH_SIZES``, default
-262144,524288,1048576): matmul + top-k (:func:`dense_topk_matmul`)
-against the row-major two-phase search around kernel K1
-(:func:`dense_topk_twophase_rm`) and, with ``BENCH_CM=1``, the
-column-major one around kernel K4 (:func:`dense_topk_twophase`, over a
+Synthetic unit-row corpora of N docs x 384 dims stored in bf16 (``run``
+takes ``dtype`` and ``n_q`` too), 64 queries, k=10, at several N
+(``BENCH_SIZES``, default 262144,524288,1048576): matmul + top-k
+(:func:`dense_topk_matmul`) against the row-major two-phase search
+around kernel K1 (:func:`dense_topk_twophase_rm`) and, with
+``BENCH_CM=1``, the column-major one around kernel K4 (:func:`dense_topk_twophase`, over a
 transposed copy of the docs), to place the dispatch crossover
 (``TWOPHASE_MIN_DOCS``) on the card. Each row's recall@10 is taken
-against the first row's ranking; GB/s is the bf16 doc matrix's size
-over the row's time; the fastest row at each N is the WINNER.
+against the first row's ranking; GB/s is the doc matrix's size over
+the row's time; the fastest row at each N is the WINNER.
 
 The counterpart of the JAX package's ``scripts/bench_scale.py``. Times
 are CUDA events over repeated calls after warm-up (the JAX script's
@@ -49,24 +49,27 @@ def recall(ids: torch.Tensor, ref_ids: torch.Tensor) -> float:
     return hits / ref_ids.numel()
 
 
-def make_data(n_max: int, device, seed: int = 0):
-    """``(queries [Q, D], docs [n_max, D])`` bf16 unit rows."""
+def make_data(n_max: int, device, seed: int = 0, dtype=torch.bfloat16,
+              n_q: int = Q):
+    """``(queries [n_q, D], docs [n_max, D])`` unit rows in ``dtype``."""
     g = torch.Generator(device=device).manual_seed(seed)
     docs = torch.randn(n_max, D, generator=g, device=device)
     docs /= docs.norm(dim=1, keepdim=True)
-    q = torch.randn(Q, D, generator=g, device=device)
+    q = torch.randn(n_q, D, generator=g, device=device)
     q /= q.norm(dim=1, keepdim=True)
-    return q.to(torch.bfloat16), docs.to(torch.bfloat16)
+    return q.to(dtype), docs.to(dtype)
 
 
 def run(sizes: Sequence[int], device, include_cm: bool, seed: int = 0,
-        log: Callable[[str], None] = print) -> List[Dict]:
+        log: Callable[[str], None] = print, dtype=torch.bfloat16,
+        n_q: int = Q) -> List[Dict]:
     """One row per (N, backend): ``{"n", "name", "ms", "gbps",
     "recall"}``, and ``{"n", "winner", "ms"}`` per N. Times are taken
     only on a CUDA device (``ms`` and ``gbps`` are None elsewhere)."""
     device = torch.device(device)
     timed = device.type == "cuda"
-    q, docs = make_data(max(sizes), device, seed)
+    q, docs = make_data(max(sizes), device, seed, dtype, n_q)
+    width = docs.element_size()
     out: List[Dict] = []
     for n in sizes:
         d_rm = docs[:n]
@@ -85,7 +88,7 @@ def run(sizes: Sequence[int], device, include_cm: bool, seed: int = 0,
             r = 1.0 if ref_ids is None else recall(ids, ref_ids)
             ref_ids = ids if ref_ids is None else ref_ids
             ms = time_ms(fn) if timed else None
-            gbps = None if ms is None else n * D * 2 / 1e9 / (ms / 1e3)
+            gbps = None if ms is None else n * D * width / 1e9 / (ms / 1e3)
             out.append({"n": n, "name": name, "ms": ms, "gbps": gbps,
                         "recall": r})
             log(f"N={n:>8}  {name:<20}: "

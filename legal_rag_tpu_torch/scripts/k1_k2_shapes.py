@@ -19,13 +19,18 @@ products at 989 TFLOP/s (bf16), 1,979 TOP/s (int8) and, for fp32, three
 TF32 products each (3xTF32) at 495 TFLOP/s; K2's 2m fp32 additions per
 doc and query at 67 TFLOP/s.
 
+``--only crossover`` places the dense dispatch's crossover in fp32:
+``bench_scale.run`` (matmul + top-k against K1's two-phase search) over
+fp32 docs at 2^18, 393,216 (the TPU's ``TWOPHASE_MIN_DOCS``) and 2^20
+rows, at Q=8 and Q=64; it is not part of the default run.
+
 ``--tree DIR`` imports the package from another checkout (an archived
 parent), so that two versions are timed by one script in one call; run
 the file then, not the module (``-m`` would import this checkout's
 package first).
 
 Run on the card:  python -m legal_rag_tpu_torch.scripts.k1_k2_shapes
-[--only k1|k2], or python legal_rag_tpu_torch/scripts/k1_k2_shapes.py
+[--only k1|k2|crossover], or python legal_rag_tpu_torch/scripts/k1_k2_shapes.py
 --tree DIR (one JSON line a shape).
 """
 
@@ -45,6 +50,8 @@ HBM_BYTES_PER_S = 3.35e12
 # per product, rate)
 PEAK = {"fp32": (3, 495e12), "bf16": (1, 989e12), "int8": (1, 1979e12)}
 FP32_PEAK = 67e12
+CROSSOVER_SIZES = (1 << 18, 393_216, 1 << 20)
+CROSSOVER_QS = (8, 64)
 
 
 def bound(n_bytes: float, n_ops: float, rate: float) -> Tuple[float, str]:
@@ -142,6 +149,20 @@ def run_k2(torch, log, seed: int = 0):
     return rows
 
 
+def run_crossover(torch, log):
+    from legal_rag_tpu_torch.scripts import bench_scale
+
+    rows = []
+    for qp in CROSSOVER_QS:
+        for row in bench_scale.run(CROSSOVER_SIZES, "cuda", False,
+                                   log=lambda line: None,
+                                   dtype=torch.float32, n_q=qp):
+            row = {"crossover": "fp32", "q": qp, **row}
+            log(json.dumps(row))
+            rows.append(row)
+    return rows
+
+
 def run(only: str = "", log: Callable[[str], None] = print):
     import torch
 
@@ -153,6 +174,8 @@ def run(only: str = "", log: Callable[[str], None] = print):
         rows += run_k1(torch, log)
     if only in ("", "k2"):
         rows += run_k2(torch, log)
+    if only == "crossover":
+        rows += run_crossover(torch, log)
     return rows
 
 
@@ -160,7 +183,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None,
                     help="import legal_rag_tpu_torch from this checkout")
-    ap.add_argument("--only", default="", choices=("", "k1", "k2"))
+    ap.add_argument("--only", default="", choices=("", "k1", "k2", "crossover"))
     args = ap.parse_args()
     if args.tree:
         sys.path.insert(0, args.tree)

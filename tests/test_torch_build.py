@@ -118,7 +118,8 @@ def _encoders(weights):
         JaxEncoder(cfg=cfg, params=params, tokenizer=WordPieceTokenizer(vocab),
                    prefer_tokenizer="python"),
         SentenceEncoder(cfg=cfg, params=params,
-                        tokenizer=WordPieceTokenizer(vocab), device="cpu"),
+                        tokenizer=WordPieceTokenizer(vocab),
+                        prefer_tokenizer="python", device="cpu"),
     )
 
 
@@ -372,13 +373,25 @@ def test_reloaded_store_encodes_queries_identically(tmp_path):
     )
 
 
-def test_manifest_records_tokenizer_impl(tmp_path):
-    store = build_index(_chunks(["alpha beta", "gamma delta"]), config=RCFG,
-                        store_dir=tmp_path, device="cpu")
-    assert store.manifest["encoder"]["tokenizer_impl"] == "python"
+@pytest.mark.parametrize("prefer", ["python", "native-cpp"])
+def test_manifest_records_tokenizer_impl(tmp_path, prefer):
+    """The build records the tokenizer that embedded the docs (the C++
+    one where ``g++`` builds it, else Python) and the engine pins it."""
+    from legal_rag_tpu_torch import native_ext
+
+    if prefer == "native-cpp" and not native_ext.native_available():
+        pytest.skip("no C++ compiler builds the native tokenizer")
+    chunks = _chunks(["alpha beta", "gamma delta"])
+    vocab = build_wordpiece_vocab([c["text"] for c in chunks],
+                                  size=RCFG.encoder.vocab_size)
+    enc = SentenceEncoder(cfg=RCFG.encoder, tokenizer=WordPieceTokenizer(vocab),
+                          prefer_tokenizer=prefer, device="cpu")
+    store = build_index(chunks, config=RCFG, store_dir=tmp_path,
+                        encoder=enc, device="cpu")
+    assert store.manifest["encoder"]["tokenizer_impl"] == prefer
     engine = RetrievalEngine(VectorStore.load(tmp_path), config=RCFG,
                              device="cpu")
-    assert engine.encoder.tokenizer_impl == "python"
+    assert engine.encoder.tokenizer_impl == prefer
 
 
 # -- the rerank gate and the labeled splits -----------------------------

@@ -15,6 +15,7 @@ COPIED_MODULES = [
     "server.app",
     "server.batching",
     "server.adapter",
+    "server.answer_units",
     "server.schemas",
     "server.sentence_attribution",
     "server.source_fetcher",
@@ -176,3 +177,15 @@ def test_copies_rewrite_only_import_lines():
         for a, b in zip(port, ref):
             if a != b:
                 assert a.lstrip().startswith(("from ", "import ")), a
+
+
+@pytest.mark.parametrize("name", ["wordpiece.cpp", "unicode_tables.h",
+                                  "gen_unicode_tables.py"])
+def test_native_tokenizer_source_is_a_verbatim_copy(name):
+    """The C++ tokenizer the port builds (``native_ext``) is the JAX
+    package's source, byte for byte."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    port = (root / "legal_rag_tpu_torch" / "native" / name).read_bytes()
+    assert port == (root / "legal_rag_tpu" / "native" / name).read_bytes()

@@ -40,8 +40,9 @@ print(" ".join(names))
 # the modules of the quantized tiers, the store module whose ivf_index()
 # imports one of them lazily, the column-major kernels, the bench, the
 # port's own copies of the JAX package's host modules, and the build
-# path (training, evaluation, `index.builder`, the command line), and the
-# evaluation path (the quality gate and the eval and kernel scripts)
+# path (training, evaluation, `index.builder`, the command line), the
+# evaluation path (the quality gate and the eval and kernel scripts), the
+# native tokenizer's binding, answer units and the two benches
 NAMED_MODULES = [
     "legal_rag_tpu_torch.ops.pq",
     "legal_rag_tpu_torch.ops.pq_segmax",
@@ -83,6 +84,10 @@ NAMED_MODULES = [
     "legal_rag_tpu_torch.scripts.bench_pq",
     "legal_rag_tpu_torch.scripts.exp_rm_sweep",
     "legal_rag_tpu_torch.scripts.exp_twophase_full",
+    "legal_rag_tpu_torch.native_ext",
+    "legal_rag_tpu_torch.server.answer_units",
+    "legal_rag_tpu_torch.scripts.bench_hybrid_scale",
+    "legal_rag_tpu_torch.scripts.bench_http",
 ]
 
 
@@ -207,14 +212,16 @@ def _entry_points():
     from legal_rag_tpu_torch.scripts import bench_maxsim_scale
     from legal_rag_tpu_torch import quality
     from legal_rag_tpu_torch.scripts import (
-        bench_pq, diag_paraphrase, eval_ablation, eval_ce_paraphrase,
-        eval_fusion_policy, exp_ivf_recovery, exp_ivf_recovery_recall,
-        exp_rm_sweep, exp_twophase_full,
+        bench_http, bench_hybrid_scale, bench_pq, diag_paraphrase,
+        eval_ablation, eval_ce_paraphrase, eval_fusion_policy,
+        exp_ivf_recovery, exp_ivf_recovery_recall, exp_rm_sweep,
+        exp_twophase_full,
     )
 
-    scripts = (bench_pq, diag_paraphrase, eval_ablation, eval_ce_paraphrase,
-               eval_fusion_policy, exp_ivf_recovery, exp_ivf_recovery_recall,
-               exp_rm_sweep, exp_twophase_full)
+    scripts = (bench_http, bench_hybrid_scale, bench_pq, diag_paraphrase,
+               eval_ablation, eval_ce_paraphrase, eval_fusion_policy,
+               exp_ivf_recovery, exp_ivf_recovery_recall, exp_rm_sweep,
+               exp_twophase_full)
     return {
         **{f"{m.__name__.rsplit('.', 1)[1]}.run": m.run for m in scripts},
         "run_quality_eval": quality.run_quality_eval,
@@ -252,7 +259,8 @@ def _entry_points():
     "bench_pq.run", "diag_paraphrase.run", "eval_ablation.run",
     "eval_ce_paraphrase.run", "eval_fusion_policy.run",
     "exp_ivf_recovery.run", "exp_ivf_recovery_recall.run",
-    "exp_rm_sweep.run", "exp_twophase_full.run",
+    "exp_rm_sweep.run", "exp_twophase_full.run", "bench_hybrid_scale.run",
+    "bench_http.run",
 ])
 def test_entry_point_defaults_to_the_card(name):
     """A missing card fails loudly; the work never moves to the CPU
@@ -266,3 +274,29 @@ def test_chip_smoke_imports_nothing_of_jax():
     src = (REPO_ROOT / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|optax)\b", src, re.M)
     assert not re.search(r"^\s*(import|from)\s+legal_rag_tpu\b(?!_torch)", src, re.M)
+
+
+def test_start_torch_sh_parses_and_runs_the_port():
+    """``start_torch.sh`` is valid bash and builds and serves with the
+    port's command line, never the JAX package's."""
+    script = REPO_ROOT / "start_torch.sh"
+    out = subprocess.run(["bash", "-n", str(script)], capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    src = script.read_text()
+    assert '"$PYTHON" -m legal_rag_tpu_torch serve' in src
+    assert '"$PYTHON" -m legal_rag_tpu_torch build' in src
+    assert not re.search(r"-m legal_rag_tpu\b(?!_torch)", src)
+
+
+def test_spaces_app_torch_imports_with_the_jax_package_blocked():
+    code = _BLOCK + (
+        "import runpy, sys\n"
+        "mod = runpy.run_path('spaces_app_torch.py', run_name='spaces')\n"
+        "print(mod['run_server'].__module__, mod['os'].environ['PORT'])\n"
+    )
+    env = {k: v for k, v in __import__("os").environ.items() if k != "PORT"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["legal_rag_tpu_torch.server.app", "7860"]

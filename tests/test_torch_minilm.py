@@ -157,8 +157,16 @@ def test_sentence_encoder_requires_weights():
     from legal_rag_tpu_torch.models.minilm import init_minilm_params
 
     texts = ["punishment for robbery", "zero fir registration procedure"]
-    enc = SentenceEncoder(cfg=CFG, vocab_corpus=texts, seed=5, device="cpu")
+    enc = SentenceEncoder(cfg=CFG, vocab_corpus=texts, seed=5, device="cpu",
+                          prefer_tokenizer="python")
     assert enc.tokenizer_impl == "python"
+    from legal_rag_tpu_torch import native_ext
+
+    native = SentenceEncoder(cfg=CFG, vocab_corpus=texts, seed=5,
+                             device="cpu", prefer_tokenizer="native-cpp")
+    assert native.tokenizer_impl == (
+        "native-cpp" if native_ext.native_available() else "python")
+    np.testing.assert_array_equal(native.encode(texts), enc.encode(texts))
     assert enc.cfg.vocab_size == len(enc.tokenizer.vocab)
     ref = init_minilm_params(enc.cfg, seed=5)
     assert np.array_equal(enc.params["embeddings"]["word"],

@@ -219,6 +219,97 @@ def test_pq_topk_wide_codes_match_jax(m):
     assert got_i[0, :6].tolist() == [7, 900, 901, 902, 903, 904]
 
 
+def _jax_segmax(lut, codes, seg_rows):
+    """The JAX package's K2 (``_pq_segmax_kernel``) alone, in interpret
+    mode, laid out as ``jpq.pq_topk`` launches it: ``[Q, n_pad / sr]``
+    over the block-padded codes."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+
+    n, m = codes.shape
+    q = lut.shape[0]
+    block_n = -(-n // (seg_rows * 128)) * seg_rows * 128
+    codes = np.pad(codes, ((0, block_n - n), (0, 0)))
+    spread = ((np.arange(128)[None, :] >> 5) == np.arange(4)[:, None])
+    lut_k = jnp.asarray(np.transpose(lut, (1, 2, 0))).astype(
+        jnp.bfloat16).reshape(m // 4, 128, q)
+    kernel = functools.partial(jpq._pq_segmax_kernel, seg_rows=seg_rows,
+                               block_n=block_n, n_real=n, m=m)
+    return np.asarray(pl.pallas_call(
+        kernel, grid=(1,),
+        in_specs=[pl.BlockSpec((block_n, m), lambda j: (0, 0)),
+                  pl.BlockSpec((m // 4, 128, q), lambda j: (0, 0, 0)),
+                  pl.BlockSpec((4, 128), lambda j: (0, 0))],
+        out_specs=pl.BlockSpec((q, block_n // seg_rows), lambda j: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((q, block_n // seg_rows), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(codes), lut_k, jnp.asarray(spread, jnp.float32)))
+
+
+@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+def test_pq_segmax_reference_matches_the_jax_kernel_at_every_seg_rows(
+        clustered, jax_cb, seg_rows):
+    """The plain K2 against the JAX package's Pallas kernel (interpret
+    mode) on the same bf16 tables, 1,001 docs (the last segment part
+    full): segment maxima within 1e-5 (fp32 sums of 2m bf16 entries in
+    another order)."""
+    docs, q = clustered
+    codes = jpq.encode_pq(docs[:1001], jax_cb)
+    lut = tpq.pq_lut(torch.from_numpy(jax_cb.rotate(q[:5])),
+                     torch.from_numpy(jax_cb.codebooks)).to(torch.bfloat16)
+    got = k2.pq_segmax_reference(lut, torch.from_numpy(codes), seg_rows)
+    n_segs = -(-1001 // seg_rows)
+    assert got.shape == (5, n_segs)
+    ref = _jax_segmax(lut.float().numpy(), codes, seg_rows)[:, :n_segs]
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+def test_pq_topk_matches_jax_at_every_seg_rows(clustered, jax_cb, seg_rows):
+    """``pq_topk(..., seg_rows=)`` for each segment the kernels take
+    against the JAX pq_topk in interpret mode, with n_valid inside a
+    segment: scores within 1e-5, ids under the tie rule."""
+    docs, q = clustered
+    n, n_valid, k = 1800, 1757, 10
+    codes = jpq.encode_pq(docs[:n], jax_cb)
+    qr = jax_cb.rotate(q)
+    ref_s, ref_i = jpq.pq_topk(
+        jnp.asarray(qr), jnp.asarray(codes), jnp.asarray(jax_cb.codebooks),
+        k, n_valid=jnp.int32(n_valid), block_n=512, seg_rows=seg_rows,
+        interpret=True,
+    )
+    got_s, got_i = tpq.pq_topk(
+        torch.from_numpy(qr), torch.from_numpy(codes),
+        torch.from_numpy(jax_cb.codebooks), k, n_valid=n_valid,
+        seg_rows=seg_rows,
+    )
+    assert bool((got_i < n_valid).all())
+    assert_same_under_ties(got_s, got_i, ref_s, ref_i)
+
+
+@pytest.mark.parametrize("seg_rows", [3, 12])
+def test_pq_topk_at_seg_rows_the_kernels_do_not_take(clustered, jax_cb,
+                                                      seg_rows):
+    """The reference runs a seg_rows that is not a power of two where
+    its block is a multiple of ``seg_rows * 128`` (more docs than one
+    block of 4,096); the port's plain version takes it too, the kernels
+    refuse it (ROADMAP queue 3)."""
+    docs, q = clustered
+    codes = jpq.encode_pq(np.tile(docs, (3, 1))[:5000], jax_cb)
+    qr = jax_cb.rotate(q[:4])
+    ref_s, ref_i = jpq.pq_topk(
+        jnp.asarray(qr), jnp.asarray(codes), jnp.asarray(jax_cb.codebooks),
+        10, seg_rows=seg_rows, interpret=True,
+    )
+    got_s, got_i = tpq.pq_topk(
+        torch.from_numpy(qr), torch.from_numpy(codes),
+        torch.from_numpy(jax_cb.codebooks), 10, seg_rows=seg_rows,
+    )
+    assert_same_under_ties(got_s, got_i, ref_s, ref_i)
+
+
 def test_pq_segmax_launch_plan_fits_every_width():
     """Every m % 4 == 0 up to TC_MAX_M (and Q up to 128) plans a built
     query tile that holds Q where it fits, and a block within 232,448
@@ -531,3 +622,69 @@ def test_pq_segmax_shared_memory_plan_matches_the_kernel(cuda):
             for stages in (1, 2):
                 assert lib.pq_segmax_smem_bytes(m, qt, stages) == \
                     k2.smem_bytes(m, qt, stages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+@pytest.mark.parametrize("n_q", [1, 8, 9, 64, 65, 128])
+@pytest.mark.parametrize("m", [48, 304])
+def test_pq_segmax_every_seg_rows_on_gpu(cuda, seg_rows, n_q, m):
+    """Both kernels at every seg_rows they take, at the query tiles'
+    edges, with m on both sides of TC_MAX_M and the last segment part
+    full (rows past N masked inside it): the dispatch and each kernel
+    alone agree with the plain version within 1e-5, one launch each."""
+    assert m % 4 == 0 and (m > k2.TC_MAX_M) == (m == 304)
+    n = 64 * 45 + 37
+    rng = np.random.default_rng(seg_rows * 1000 + n_q + m)
+    codes = torch.from_numpy(rng.integers(0, 256, (n, m), dtype=np.uint8)).to(cuda)
+    codes[100:140] = codes[3]
+    lut = torch.from_numpy(
+        rng.standard_normal((n_q, 2 * m, 16)).astype(np.float32) * 0.05
+    ).to(cuda, torch.bfloat16)
+    ref = k2.pq_segmax_reference(lut, codes, seg_rows)
+    launches = [k2.pq_segmax, k2._launch_lookup]
+    if m <= k2.TC_MAX_M:
+        launches.append(k2._launch_tensor_cores)
+    for launch in launches:
+        before = k2.K2.launches
+        got = launch(lut, codes, seg_rows)
+        torch.cuda.synchronize()
+        assert k2.K2.launches == before + 1
+        assert got.shape == ref.shape == (n_q, -(-n // seg_rows))
+        torch.testing.assert_close(got, ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+def test_pq_topk_every_seg_rows_on_gpu(cuda, clustered, jax_cb, seg_rows):
+    """pq_topk through K2 at every seg_rows against the same call on the
+    CPU (the plain version), n_valid inside a segment."""
+    docs, q = clustered
+    codes = torch.from_numpy(jpq.encode_pq(docs, jax_cb))
+    qr = torch.from_numpy(jax_cb.rotate(q))
+    cbs = torch.from_numpy(jax_cb.codebooks)
+    before = k2.K2.launches
+    got = tpq.pq_topk(qr.to(cuda), codes.to(cuda), cbs.to(cuda), 20,
+                      n_valid=1995, seg_rows=seg_rows)
+    assert k2.K2.launches == before + 1
+    ref = tpq.pq_topk(qr, codes, cbs, 20, n_valid=1995, seg_rows=seg_rows)
+    assert_same_under_ties(got[0].cpu(), got[1].cpu(), ref[0], ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_rows", [0, 3, 12, 128])
+def test_pq_segmax_refuses_other_seg_rows_on_gpu(cuda, seg_rows):
+    lut = torch.zeros(8, 96, 16, dtype=torch.bfloat16, device=cuda)
+    codes = torch.zeros(1000, 48, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="seg_rows"):
+        k2.pq_segmax(lut, codes, seg_rows)
+
+
+@pytest.mark.gpu
+def test_pq_segmax_lookup_shared_memory_matches_the_kernel(cuda):
+    lib = k2.K2.library()
+    for m in (k2.TC_MAX_M + 4, 1000, k2.MAX_M):
+        for sr in k2.SUPPORTED_SEG_ROWS:
+            qt = k2.lookup_tile(m, 64, sr)
+            assert lib.pq_segmax_lookup_smem_bytes(m, qt, sr) == \
+                k2.lookup_smem_bytes(m, qt, sr)
