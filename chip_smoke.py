@@ -150,12 +150,27 @@ Phases, one output line each:
    1 and 16; coalesced, uncoalesced and no-rerank passes, zero errors);
 13. the deployment entry points start_torch.sh and spaces_app_torch.py
    over phase 9's store, each ready on /health, one /api/v1/query
-   answered 200, then stopped by SIGTERM to its process group.
+   answered 200, then stopped by SIGTERM to its process group;
+14. multi-GPU sharding on the one card (every mesh position on cuda:0):
+   sharded_hybrid_search at S=2 over phase 3's fp32 store (507,904 rows
+   a shard, K1 once a shard), RRF and weighted over 64 queries, equal to
+   the served S=1 search under the tie rule and placed as the float64
+   channels allow, with both searches' ms and the candidates' gather
+   alone at S=2 and 4; a 2x2 (data, shard) mesh equal to S=2; two
+   processes on cuda:0 over gloo (world 2) and one over NCCL (world 1),
+   spawned together, equal to this process's S=2 and S=1; PQ at S=4
+   over phase 2d's codes (K2 once a shard, flat equal to S=1) and IVF at
+   512 probes a shard above the 0.94 recall floor; both MaxSim modes at
+   S=2 over the slab's first 65,536 docs (the scan equal to S=1, the
+   rerank equal to exact float64 MaxSim over each shard's own dense
+   top-20); three fine-tune steps at S=2 within 1e-4 of S=1's losses;
+   K2 at seg_rows 3 and 12 against its plain version and pq_topk there
+   against float64 ADC.
 
 Then a JSON line with each kernel's launches, error, times and bound
 (K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also on the
-maxsim-rerank path and bench_hybrid_scale's; K2 also on the eval
-path's pq mode and at seg_rows 16),
+maxsim-rerank path, bench_hybrid_scale's and the S=2 search; K2 also on
+the eval path's pq mode, at seg_rows 16, 3 and 12 and at S=4),
 and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the exit code is non-zero and that last line is not printed. No module
 of the JAX package (``legal_rag_tpu``) may be loaded by the end.
@@ -383,6 +398,7 @@ def phase_kernel_int8(torch, docs32, seed: int):
     idx = ShardedIndex.from_embeddings(docs32.cpu().numpy(), dtype="int8",
                                        device=dev)
     check(idx.docs.shape == (N_ROWS, DIM), "int8 index shape")
+    docs_i8, doc_scales = idx.docs.full(), idx.doc_scales.full()
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     max_err, times = 0, {}
     for qp in K1_QS:
@@ -391,8 +407,8 @@ def phase_kernel_int8(torch, docs32, seed: int):
         q[1] = docs32[123]
         q_i8, q_scale = quantize_queries(q)
         for n_valid in (N_VALID, N_VALID + 3):
-            got = segmax_rm(q_i8, idx.docs, n_valid)
-            ref = segmax_rm_reference(q_i8, idx.docs, n_valid)
+            got = segmax_rm(q_i8, docs_i8, n_valid)
+            ref = segmax_rm_reference(q_i8, docs_i8, n_valid)
             torch.cuda.synchronize()
             check(got.dtype == ref.dtype == torch.int32, "K1-int8 dtype")
             check(got.shape == (qp, N_ROWS // 8), "K1-int8 shape")
@@ -400,19 +416,19 @@ def phase_kernel_int8(torch, docs32, seed: int):
                   f"{int((got != ref).sum())} map entries differ")
             max_err = max(max_err, int((got - ref).abs().max()))
         # the two-phase top-20 is the exact top-20 of the int8 metric
-        s, i = dense_topk_twophase_rm(q, idx.docs, 20, n_valid=N_VALID,
-                                      doc_scales=idx.doc_scales)
-        acc = q_i8.float() @ idx.docs[:N_VALID].float().T
-        full = acc * q_scale[:, None] * idx.doc_scales[:N_VALID][None, :]
+        s, i = dense_topk_twophase_rm(q, docs_i8, 20, n_valid=N_VALID,
+                                      doc_scales=doc_scales)
+        acc = q_i8.float() @ docs_i8[:N_VALID].float().T
+        full = acc * q_scale[:, None] * doc_scales[:N_VALID][None, :]
         ids = torch.arange(N_VALID, device=dev).expand(qp, N_VALID)
         want_s, want_i = sort_score_desc_id_asc(full, ids)
         check(torch.equal(i.long(), want_i[:, :20]), "int8 top-20 ids")
         check(torch.equal(s, want_s[:, :20]), "int8 top-20 scores")
-        k1 = lambda: segmax_rm(q_i8, idx.docs, N_VALID)
-        plain = lambda: segmax_rm_reference(q_i8, idx.docs, N_VALID)
+        k1 = lambda: segmax_rm(q_i8, docs_i8, N_VALID)
+        plain = lambda: segmax_rm_reference(q_i8, docs_i8, N_VALID)
         p1, k1a, k1b, p2 = (time_ms(f) for f in (plain, k1, k1, plain))
         two = time_ms(lambda: dense_topk_twophase_rm(
-            q, idx.docs, 32, n_valid=N_VALID, doc_scales=idx.doc_scales))
+            q, docs_i8, 32, n_valid=N_VALID, doc_scales=doc_scales))
         times[qp] = {"k1_ms": (k1a + k1b) / 2, "plain_ms": (p1 + p2) / 2,
                      "twophase_ms": two}
     return max_err, times
@@ -600,7 +616,8 @@ def phase_pq(torch, seed: int):
         check(recall[name] >= RECOVERY_FLOOR[name],
               f"recovery {name}: recall@10 {recall[name]} < "
               f"{RECOVERY_FLOOR[name]}")
-    return max_err, times, recall, (t_data, t_train), times_w, times_sr
+    return (max_err, times, recall, (t_data, t_train), times_w, times_sr,
+            (docs, qs, cb, codes, ivf))
 
 
 def phase_probe(torch) -> dict:
@@ -1551,8 +1568,8 @@ def maxsim64(torch, q_tok, q_mask, mv, n_docs: int, block: int = 8192):
                       device=qt.device)
     for lo in range(0, n_docs, block):
         hi = min(lo + block, n_docs)
-        sims = torch.einsum("qtd,bsd->qtbs", qt, mv.doc_tokens[lo:hi].double())
-        sims.masked_fill_(mv.doc_mask[lo:hi][None, None] <= 0, -math.inf)
+        sims = torch.einsum("qtd,bsd->qtbs", qt, mv.doc_tokens.full()[lo:hi].double())
+        sims.masked_fill_(mv.doc_mask.full()[lo:hi][None, None] <= 0, -math.inf)
         best = sims.amax(dim=3)
         best = torch.where(torch.isfinite(best), best, 0.0)
         out[:, lo:hi] = (best * real[:, :, None]).sum(dim=1)
@@ -1622,7 +1639,7 @@ def phase_maxsim(store, legal, n_docs: int, device: str = "cuda"):
     nq = len(queries)
     s64 = maxsim64(torch, q_tok[:nq], q_mask[:nq], mv, n_docs)
     c = max(engine.config.fusion.candidate_multiplier * k, k)
-    _, cand = _local_dense_topc(q_emb, engine.index.docs, n_docs, c)
+    _, cand = _local_dense_topc(q_emb, engine.index.docs.full(), 0, n_docs, c)
     pool = torch.full_like(s64, -math.inf)
     for qi in range(nq):
         ids = cand[qi][(cand[qi] >= 0) & (cand[qi] < n_docs)]
@@ -1644,7 +1661,8 @@ def phase_maxsim(store, legal, n_docs: int, device: str = "cuda"):
                               iters=3, warmup=1)
         profile = device_breakdown(
             torch, lambda: mv.search(q_tok, q_mask, k, block_n=block))
-    slab_gb = mv.doc_tokens.numel() * mv.doc_tokens.element_size() / 1e9
+    slab = mv.doc_tokens.full()
+    slab_gb = slab.numel() * slab.element_size() / 1e9
     return {
         "counts": rerank_counts, "stages": stages, "slab_gb": slab_gb,
         "block": block, "scan_ms": scan, "upload_s": t_upload,
@@ -2602,6 +2620,518 @@ def ptxas_registers(log: str) -> str:
     return ", ".join(out)
 
 
+# -- 14. multi-GPU sharding on the one card ---------------------------------
+
+SHARD_Q = 64                 # the coalescer's flush
+N_MV_SHARDED = 65_536        # the MaxSim slab's depth at S=2
+FT_STEPS, FT_BATCH = 3, 32   # the fine-tune's steps and global batch
+FT_RTOL = 1e-4               # S=2 vs S=1 losses: fp32 sums in another order
+SEG_ODD = (3, 12)            # K2 at seg_rows that are not powers of two
+
+SHARD_WORKER = r'''
+import json, os, sys, time
+sys.path.insert(0, os.environ["LR_REPO"])
+import numpy as np
+import torch
+import torch.distributed as dist
+from legal_rag_tpu_torch.parallel import mesh as pm
+
+n_proc, pid = int(os.environ["LR_NPROC"]), int(os.environ["LR_PID"])
+backend = os.environ["LR_BACKEND"]
+pm.initialize_distributed(os.environ["LR_COORD"], n_proc, pid, [0],
+                          device="cuda", backend=backend)
+from legal_rag_tpu_torch.ops.segmax_rm import K1
+from legal_rag_tpu_torch.parallel.sharded import (
+    ShardedIndex, sharded_hybrid_search,
+)
+from legal_rag_tpu_torch.utils.timing import time_ms
+
+dev = torch.device("cuda", 0)
+out = {"process": pid, "world": dist.get_world_size(), "backend": backend}
+# does the process group take CUDA tensors for all_gather as they are?
+try:
+    parts = [torch.empty(4, device=dev) for _ in range(n_proc)]
+    dist.all_gather(parts, torch.ones(4, device=dev))
+    torch.cuda.synchronize()
+    out["cuda_all_gather"] = "taken"
+except Exception as exc:  # noqa: BLE001 - reported, not hidden
+    out["cuda_all_gather"] = f"refused: {type(exc).__name__}"
+inp = np.load(os.environ["LR_IN"])
+emb = np.load(os.path.join(os.environ["LR_STORE"], "embeddings.npy"),
+              mmap_mode="r")
+mesh = pm.make_mesh(n_proc)
+t0 = time.time()
+index = ShardedIndex.from_embeddings(emb, mesh)
+torch.cuda.synchronize()
+out["upload_s"] = time.time() - t0
+args = [torch.from_numpy(inp[k]).to(dev) for k in ("pid", "pw", "q", "w")]
+res = {}
+for mode in ("rrf", "weighted"):
+    K1.launches = 0
+    f, ids, _, _ = sharded_hybrid_search(
+        index.docs, *args, mesh=mesh, k=10, c=20, n_docs=int(inp["n"]),
+        mode=mode)
+    torch.cuda.synchronize()
+    res[mode + "_f"], res[mode + "_i"] = f.cpu().numpy(), ids.cpu().numpy()
+    out[mode + "_k1"] = K1.launches
+out["search_ms"] = time_ms(lambda: sharded_hybrid_search(
+    index.docs, *args, mesh=mesh, k=10, c=20, n_docs=int(inp["n"]),
+    mode="rrf"), iters=5, warmup=1)
+cand = {(0, s): torch.zeros(args[2].shape[0], 20, device=dev)
+        for s in range(n_proc) if mesh.is_local((s,))}
+owners = {(0, s): s for s in range(n_proc)}
+out["gather_ms"] = time_ms(
+    lambda: pm.gather_items(mesh, cand, owners, dev), iters=20, warmup=2)
+np.savez(os.environ["LR_OUT"], **res)
+pm.shutdown_distributed()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def same_topk(torch, f_a, i_a, f_b, i_b, tol, what):
+    """Two ``[Q, k]`` results equal under the tie rule: values rank by
+    rank within ``tol``; where ids differ, the ranks' values tie."""
+    check(f_a.shape == f_b.shape, f"{what}: shapes {f_a.shape} {f_b.shape}")
+    fa, fb = f_a.double().cpu(), f_b.double().cpu()
+    fin = torch.isfinite(fa)
+    check(bool((fin == torch.isfinite(fb)).all()), f"{what}: finite slots "
+          "differ")
+    gap = float((fa - fb)[fin].abs().max()) if bool(fin.any()) else 0.0
+    check(gap <= tol, f"{what}: values differ by {gap}")
+    ia, ib = i_a.cpu(), i_b.cpu()
+    for qi in range(ia.shape[0]):
+        row_a, row_b = ia[qi].tolist(), ib[qi].tolist()
+        if row_a == row_b:
+            continue
+        kth = float(fa[qi, -1])
+        clear_a = {d for d, v in zip(row_a, fa[qi].tolist()) if v > kth + tol}
+        clear_b = {d for d, v in zip(row_b, fb[qi].tolist()) if v > kth + tol}
+        check(clear_a == clear_b, f"{what}: query {qi}: {row_a} vs {row_b}")
+    return int((ia != ib).sum())
+
+
+def run_shard_workers(torch, store_dir: str, inputs: dict) -> dict:
+    """The two-process gloo run (two processes on cuda:0, world 2) and
+    the one-process NCCL run (world 1), at once, each a process of its
+    own; returns their reports and results."""
+    import numpy as np
+
+    work = os.path.join(REPO_ROOT, "build", "smoke_shards")
+    os.makedirs(work, exist_ok=True)
+    in_path = os.path.join(work, "inputs.npz")
+    np.savez(in_path, **inputs)
+    runs = {"gloo": 2, "nccl": 1}
+    procs = []
+    for backend, n_proc in runs.items():
+        port = free_port()
+        for pid in range(n_proc):
+            env = dict(os.environ, LR_REPO=REPO_ROOT, LR_NPROC=str(n_proc),
+                       LR_PID=str(pid), LR_BACKEND=backend,
+                       LR_COORD=f"localhost:{port}", LR_IN=in_path,
+                       LR_STORE=store_dir,
+                       LR_OUT=os.path.join(work, f"{backend}{pid}.npz"))
+            log = open(os.path.join(work, f"{backend}{pid}.log"), "w")
+            procs.append((backend, pid, log, subprocess.Popen(
+                [sys.executable, "-c", SHARD_WORKER], env=env, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True)))
+    out = {}
+    try:
+        for backend, pid, log, p in procs:
+            rc = p.wait(timeout=240)
+            log.close()
+            text = open(log.name).read()
+            check(rc == 0, f"{backend} worker {pid} exited {rc}: {text[-3000:]}")
+            line = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+            check(bool(line), f"{backend} worker {pid}: no result")
+            rep = json.loads(line[-1][len("RESULT "):])
+            rep["res"] = dict(np.load(os.path.join(work, f"{backend}{pid}.npz")))
+            out[(backend, pid)] = rep
+    finally:
+        for _, _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return out
+
+
+def phase_shards(store, engine, recovery, seed: int) -> dict:
+    """Phase 14: the sharded paths on the one card (every mesh position
+    on cuda:0), each against its one-shard run and a float64 reference."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from legal_rag_tpu_torch.models.finetune import finetune_encoder
+    from legal_rag_tpu_torch.ops.dense import TWOPHASE_MIN_DOCS, exact_rescore
+    from legal_rag_tpu_torch.ops.pq import pq_lut, pq_topk
+    from legal_rag_tpu_torch.ops.pq_segmax import (
+        K2, pq_segmax, pq_segmax_reference,
+    )
+    from legal_rag_tpu_torch.ops.segmax_rm import (
+        segmax_rm, segmax_rm_reference,
+    )
+    from legal_rag_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from legal_rag_tpu_torch.parallel.sharded import (
+        ShardedIndex, ShardedMultiVectorIndex, _Work, _local_dense_topc,
+        sharded_hybrid_search,
+    )
+    from legal_rag_tpu_torch.retrieval.engine import _pad_pow2
+    from legal_rag_tpu_torch.utils.timing import time_ms
+
+    t_phase = time.time()
+    dev = torch.device("cuda", 0)
+    one = make_mesh(1)
+    check(engine.mesh.shape == {"shard": 1}, "the served engine is not S=1")
+    mesh = {s: Mesh([dev] * s, ("shard",)) for s in (2, 4)}
+    cfg = engine.config
+    out = {"counts": {}, "ms": {}, "gather_ms": {}, "swaps": {}}
+    Row = collections.namedtuple("Row", "doc_id score")
+
+    # -- 14a. S=2 over the fp32 store: RRF and weighted, against S=1 and
+    # the float64 channels
+    queries = SERVED_BATCHES[SHARD_Q]
+    q_emb = engine.encoder.encode(list(queries))
+    budget = _pad_pow2(store.bm25.postings_budget(
+        queries, cap=cfg.bm25.postings_budget_cap))
+    pid_np, pw_np = store.bm25.gather_postings(queries, budget)
+    w_np = np.full(SHARD_Q, cfg.fusion.hybrid_weight, np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (pid_np, pw_np, q_emb, w_np)]
+    n = store.n_docs
+    t0 = time.time()
+    idx2 = ShardedIndex.from_embeddings(store.embeddings, mesh[2])
+    torch.cuda.synchronize()
+    out["upload_s"] = time.time() - t0
+    n_local = idx2.docs.shape[0] // 2
+    out["n_local"] = n_local
+    check(n_local >= TWOPHASE_MIN_DOCS, f"n_local {n_local} takes no K1")
+    # K1 at one shard's shape against its plain version
+    blk, qf = idx2.docs.local((0,)), args[2].float().contiguous()
+    got = segmax_rm(qf, blk, n_local)
+    ref = segmax_rm_reference(qf, blk, n_local)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(err <= SEG_TOL, f"K1 at a shard: error {err}")
+    p1, ka, kb, p2 = (time_ms(f, iters=10, warmup=2) for f in (
+        lambda: segmax_rm_reference(qf, blk, n_local),
+        lambda: segmax_rm(qf, blk, n_local),
+        lambda: segmax_rm(qf, blk, n_local),
+        lambda: segmax_rm_reference(qf, blk, n_local)))
+    out["k1_shard"] = {
+        "ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2, "err": err,
+        "bound": bound(n_local * DIM * 4 + SHARD_Q * DIM * 4
+                       + SHARD_Q * n_local // 8 * 4,
+                       3 * 2 * SHARD_Q * n_local * DIM, "tf32")}
+    channels = channel_scores(store, engine.encoder, queries,
+                              cfg.bm25.postings_budget_cap, False)
+    c = max(cfg.fusion.candidate_multiplier * 10, 10)
+    res = {}
+    for mode in ("rrf", "weighted"):
+        reset_counts()
+        f2, i2, _, _ = sharded_hybrid_search(
+            idx2.docs, *args, mesh=mesh[2], k=10, c=c, n_docs=n, mode=mode)
+        torch.cuda.synchronize()
+        out["counts"][f"S=2 {mode}"] = read_counts()
+        check(read_counts()["K1"] == 2, f"S=2 {mode}: K1 launched "
+              f"{read_counts()['K1']}x, not once a shard")
+        f1, i1, _, _ = sharded_hybrid_search(
+            engine.index.docs, *args, mesh=engine.mesh, k=10, c=c, n_docs=n,
+            mode=mode)
+        out["swaps"][f"S=2 {mode}"] = same_topk(
+            torch, f2, i2, f1, i1, DENSE_TOL + RRF_SWAP * (mode == "rrf"),
+            f"S=2 vs S=1 {mode}")
+        for qi in range(SHARD_Q):
+            rows = [Row(int(d), float(v)) for d, v in
+                    zip(i2[qi].tolist(), f2[qi].tolist())]
+            assert_rows_exact(rows, channels[qi], mode, float(w_np[qi]), c,
+                              cfg.fusion.rrf_k, f"S=2 {mode}")
+        res[mode] = (f2, i2, f1, i1)
+        for s, m, idx in ((1, engine.mesh, engine.index), (2, mesh[2], idx2)):
+            out["ms"][(mode, s)] = time_ms(lambda: sharded_hybrid_search(
+                idx.docs, *args, mesh=m, k=10, c=c, n_docs=n, mode=mode),
+                iters=10, warmup=2)
+
+    # the candidates' gather alone (the reference's all_gather), S = 2, 4
+    for s in (2, 4):
+        work = _Work(mesh[s], None, SHARD_Q)
+        items = {(0, j): torch.randn(SHARD_Q, c, device=dev)
+                 for j in range(s)}
+        out["gather_ms"][s] = time_ms(
+            lambda: work.to_qc(work.gather(items), 0), iters=50, warmup=5)
+
+    # -- 14b. a 2x2 (data, shard) mesh: the batch split over rows
+    mesh22 = Mesh([[dev, dev], [dev, dev]], ("data", "shard"))
+    idx22 = ShardedIndex.from_embeddings(store.embeddings, mesh22)
+    for mode in ("rrf", "weighted"):
+        reset_counts()
+        f22, i22, _, _ = sharded_hybrid_search(
+            idx22.docs, *args, mesh=mesh22, k=10, c=c, n_docs=n, mode=mode,
+            data_axis="data")
+        torch.cuda.synchronize()
+        check(read_counts()["K1"] == 4, "2x2: K1 not once a position")
+        f2, i2, _, _ = res[mode]
+        out["swaps"][f"2x2 {mode}"] = same_topk(
+            torch, f22, i22, f2, i2, DENSE_TOL + RRF_SWAP * (mode == "rrf"),
+            f"2x2 vs S=2 {mode}")
+    del idx22
+    torch.cuda.empty_cache()
+
+    # -- 14c. the two-process gloo run and the one-process NCCL run over
+    # the saved store, against this process's S=2 and S=1
+    workers = run_shard_workers(torch, os.path.join(REPO_ROOT, "build",
+                                                    "smoke_store"), {
+        "pid": pid_np, "pw": pw_np, "q": np.ascontiguousarray(q_emb),
+        "w": w_np, "n": np.int64(n)})
+    for (backend, pid), rep in workers.items():
+        for mode in ("rrf", "weighted"):
+            f2, i2, f1, i1 = res[mode]
+            f_ref, i_ref = (f2, i2) if backend == "gloo" else (f1, i1)
+            same_topk(torch, torch.from_numpy(rep["res"][mode + "_f"]),
+                      torch.from_numpy(rep["res"][mode + "_i"]), f_ref, i_ref,
+                      DENSE_TOL + RRF_SWAP * (mode == "rrf"),
+                      f"{backend} process {pid} {mode}")
+            check(rep[mode + "_k1"] == 1, f"{backend} process {pid}: K1 "
+                  f"launched {rep[mode + '_k1']}x")
+    out["workers"] = {k: {n_: v for n_, v in rep.items() if n_ != "res"}
+                      for k, rep in workers.items()}
+    del idx2
+    torch.cuda.empty_cache()
+
+    # -- 14d. PQ at S=4 over the recovery workload: flat against S=1, K2
+    # once a shard; IVF at 512 probes a shard above the recall floor
+    docs, qs, cb, codes, ivf = recovery
+    k, kk = 10, 10 * RECOVERY_OVERSAMPLE
+    qrot = torch.from_numpy(np.ascontiguousarray(cb.rotate(qs))).to(dev)
+    no_pid = torch.full((RECOVERY_Q, 8), RECOVERY_N, dtype=torch.int32,
+                        device=dev)
+    no_w = torch.zeros((RECOVERY_Q, 8), device=dev)
+    zero = torch.zeros(RECOVERY_Q, device=dev)
+    gold = torch.from_numpy(qs).to(dev) @ torch.from_numpy(docs).to(dev).T
+    gold = [set(r) for r in torch.sort(gold, dim=1, descending=True,
+                                       stable=True).indices[:, :k].tolist()]
+    pq_idx = {s: ShardedIndex.from_pq(codes, cb.codebooks, m, cb.rotation)
+              for s, m in ((1, one), (4, mesh[4]))}
+    flat = {}
+    for s, m in ((1, one), (4, mesh[4])):
+        K2.launches = 0
+        f, i, _, _ = sharded_hybrid_search(
+            pq_idx[s].docs, no_pid, no_w, qrot, zero, None,
+            pq_idx[s].pq_codebooks, mesh=m, k=kk, c=kk, n_docs=RECOVERY_N)
+        torch.cuda.synchronize()
+        out["counts"][f"pq S={s}"] = K2.launches
+        check(K2.launches == s, f"PQ S={s}: K2 launched {K2.launches}x")
+        flat[s] = (f, i)
+    out["swaps"]["pq flat S=4"] = same_topk(torch, *flat[4], *flat[1], PQ_TOL,
+                                            "PQ flat S=4 vs S=1")
+    # K2 at one shard's shape against its plain version
+    blk = pq_idx[4].docs.local((0,))
+    lut = pq_lut(qrot, pq_idx[4].pq_codebooks.local((0,))).to(
+        torch.bfloat16).contiguous()
+    got, ref = pq_segmax(lut, blk), pq_segmax_reference(lut, blk)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(err <= PQ_TOL, f"K2 at a shard: error {err}")
+    p1, ka, kb, p2 = (time_ms(f, iters=10, warmup=2) for f in (
+        lambda: pq_segmax_reference(lut, blk), lambda: pq_segmax(lut, blk),
+        lambda: pq_segmax(lut, blk), lambda: pq_segmax_reference(lut, blk)))
+    n_blk = blk.shape[0]
+    out["k2_shard"] = {
+        "ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2, "err": err,
+        "rows": n_blk,
+        "bound": bound(n_blk * PQ_M + RECOVERY_Q * 2 * PQ_M * 16 * 2
+                       + RECOVERY_Q * n_blk // 8 * 4,
+                       RECOVERY_Q * n_blk * 2 * PQ_M, "fp32")}
+    ivf_idx = ShardedIndex.from_pq_ivf(ivf, cb.codebooks, mesh[4], cb.rotation)
+    K2.launches = 0
+    _, cand, _, _ = sharded_hybrid_search(
+        ivf_idx.docs, no_pid, no_w, qrot, zero, None, ivf_idx.pq_codebooks,
+        ivf_idx.ivf_centroids, ivf_idx.ivf_doc_ids, mesh=mesh[4], k=kk, c=kk,
+        n_docs=ivf_idx.n_docs, ivf_probes=512, ivf_cell_size=ivf.cell_size)
+    torch.cuda.synchronize()
+    out["counts"]["ivf S=4"] = K2.launches
+    check(K2.launches == 4, f"IVF S=4: K2 launched {K2.launches}x")
+    out["ivf_cells_local"] = ivf_idx.ivf_centroids.shape[0] // 4
+    recall = {}
+    for name, ids in (("flat S=4", flat[4][1]), ("ivf512 S=4", cand)):
+        _, top, _, _ = exact_rescore(qs, ids.cpu().numpy(), docs, k=k)
+        recall[name] = float(np.mean([
+            len(set(row.tolist()) & want) / k for row, want in zip(top, gold)
+        ]))
+    check(recall["flat S=4"] >= RECOVERY_FLOOR["flat"], f"{recall}")
+    check(recall["ivf512 S=4"] >= RECOVERY_FLOOR["ivf512"], f"{recall}")
+    out["recall"] = recall
+    out["ms"]["pq flat S=4"] = time_ms(lambda: sharded_hybrid_search(
+        pq_idx[4].docs, no_pid, no_w, qrot, zero, None, pq_idx[4].pq_codebooks,
+        mesh=mesh[4], k=kk, c=kk, n_docs=RECOVERY_N), iters=5, warmup=1)
+    out["ms"]["pq flat S=1"] = time_ms(lambda: sharded_hybrid_search(
+        pq_idx[1].docs, no_pid, no_w, qrot, zero, None, pq_idx[1].pq_codebooks,
+        mesh=one, k=kk, c=kk, n_docs=RECOVERY_N), iters=5, warmup=1)
+    del pq_idx, ivf_idx
+    torch.cuda.empty_cache()
+
+    # -- 14e. both MaxSim modes at S=2 over the slab's first docs
+    nm = N_MV_SHARDED
+    q_tok, q_mask, q_pool = engine._encode_query_tokens(
+        list(PRIMARY) + [""] * (8 - len(PRIMARY)))
+    mv = {}
+    for s, m in ((1, one), (2, mesh[2])):
+        sidx = ShardedIndex.from_embeddings(store.embeddings[:nm], m)
+        midx = ShardedMultiVectorIndex.from_arrays(
+            store.mv_tokens[:nm], store.mv_mask[:nm], m,
+            n_pad=sidx.docs.shape[0])
+        mv[s] = (sidx, midx,
+                 midx.search(q_tok, q_mask, 10),
+                 midx.rerank_search(sidx, q_pool, q_tok, q_mask, 10, c=20))
+    out["swaps"]["maxsim S=2"] = same_topk(torch, *mv[2][2], *mv[1][2],
+                                           MAXSIM_TOL * MV_TD, "maxsim S=2")
+    # maxsim-rerank at S=2: exact MaxSim (float64) over the union of each
+    # shard's own dense top-20
+    sidx, midx, _, (rs, ri) = mv[2]
+    slab = midx.doc_tokens.full()
+    smask = midx.doc_mask.full()
+    half = sidx.docs.shape[0] // 2
+    pools = []
+    for shard in range(2):
+        _, cand = _local_dense_topc(
+            q_pool, sidx.docs.local((shard,)), shard * half, nm, 20)
+        pools.append(cand)
+    pool = torch.cat(pools, dim=1)
+    qt64 = q_tok.to(torch.bfloat16).double()
+    for qi in range(len(PRIMARY)):
+        ids = sorted({int(d) for d in pool[qi].tolist() if 0 <= d < nm})
+        sims = torch.einsum("td,nsd->tns", qt64[qi], slab[ids].double())
+        sims = sims.masked_fill(smask[ids][None] <= 0, -math.inf)
+        best = sims.amax(dim=2).masked_fill(
+            torch.from_numpy(q_mask[qi]).to(dev)[:, None] <= 0, 0.0)
+        s64 = best.sum(dim=0)
+        order = sorted(range(len(ids)), key=lambda j: (-float(s64[j]), ids[j]))
+        want = [ids[j] for j in order[:10]]
+        got = ri[qi].tolist()
+        n_tok = int(q_mask[qi].sum())
+        for rank, d in enumerate(got):
+            check(d in ids, f"maxsim-rerank S=2: doc {d} outside the pool")
+            check(abs(float(rs[qi, rank]) - float(s64[ids.index(d)]))
+                  <= MAXSIM_TOL * n_tok, "maxsim-rerank S=2: score")
+        check(set(got) == set(want) or all(
+            abs(float(s64[ids.index(a)]) - float(s64[ids.index(b)]))
+            <= MAXSIM_TOL * n_tok for a, b in zip(got, want)),
+            f"maxsim-rerank S=2 query {qi}: {got} vs {want}")
+    del mv, slab
+    torch.cuda.empty_cache()
+
+    # -- 14f. three fine-tune steps at S=2 against three at S=1
+    texts = [store.chunks[i]["text"] for i in range(4096)]
+    losses = {}
+    # one step first: the first backward's set-up is no step's time
+    finetune_encoder(engine.encoder, texts, None, steps=1,
+                     batch_size=FT_BATCH)
+    for s, m in ((1, None), (2, mesh[2])):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, losses[s] = finetune_encoder(engine.encoder, texts, m,
+                                        steps=FT_STEPS, batch_size=FT_BATCH)
+        torch.cuda.synchronize()
+        out["ms"][f"finetune S={s}"] = (time.time() - t0) / FT_STEPS * 1e3
+    rel = float(np.max(np.abs(np.array(losses[2]) - losses[1])
+                       / np.abs(losses[1])))
+    check(rel <= FT_RTOL, f"fine-tune S=2 vs S=1: {losses[2]} vs {losses[1]}")
+    out["losses"], out["loss_rel"] = losses, rel
+
+    # -- 14g. K2 at seg_rows 3 and 12 against its plain version, and
+    # pq_topk's top-20 there against float64 ADC
+    codes_d = torch.from_numpy(codes[:N_PQ]).to(dev)
+    cbs = torch.from_numpy(cb.codebooks).to(dev)
+    out["seg_odd"] = {}
+    for sr in SEG_ODD:
+        for qp in (8, 64):
+            q = qrot[:qp].contiguous()
+            lut = pq_lut(q, cbs).to(torch.bfloat16).contiguous()
+            got = pq_segmax(lut, codes_d, sr)
+            ref = pq_segmax_reference(lut, codes_d, sr)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape == (qp, -(-N_PQ // sr)),
+                  f"K2 seg_rows {sr} shape")
+            err = float((got - ref).abs().max())
+            check(err <= PQ_TOL, f"K2 seg_rows {sr} Q={qp}: error {err}")
+            k2 = lambda: pq_segmax(lut, codes_d, sr)
+            plain = lambda: pq_segmax_reference(lut, codes_d, sr)
+            p1, ka, kb, p2 = (time_ms(f, iters=10, warmup=2)
+                              for f in (plain, k2, k2, plain))
+            K2.launches = 0
+            s, i = pq_topk(q, codes_d, cbs, 20, seg_rows=sr)
+            torch.cuda.synchronize()
+            launches = K2.launches
+            check(launches == 1, f"pq_topk(seg_rows={sr}) launched K2 "
+                  f"{launches}x")
+            lut64 = torch.einsum("qmd,mcd->qmc",
+                                 q.double().reshape(qp, 2 * PQ_M, -1),
+                                 cbs.double())
+            assert_topk_equiv_scores(
+                torch, adc_scores64(torch, lut64, codes_d), 20, s, i)
+            out["seg_odd"][(sr, qp)] = {
+                "k2_ms": (ka + kb) / 2, "plain_ms": (p1 + p2) / 2,
+                "err": err, "launches": launches,
+                "bound": bound(N_PQ * PQ_M + qp * 2 * PQ_M * 16 * 2
+                               + qp * -(-N_PQ // sr) * 4,
+                               qp * N_PQ * 2 * PQ_M, "fp32")}
+    out["wall_s"] = time.time() - t_phase
+    return out
+
+
+def print_shards(sh: dict) -> None:
+    ms, g = sh["ms"], sh["gather_ms"]
+    print(f"phase 14 ok: S=2 on one card over the fp32 store ({sh['n_local']}"
+          f" rows a shard, uploaded in {sh['upload_s']:.1f} s), "
+          f"{SHARD_Q} queries: RRF and weighted ids == S=1 under the tie "
+          f"rule ({sh['swaps']['S=2 rrf']} and {sh['swaps']['S=2 weighted']} "
+          f"tied ranks trade places) and every returned doc placed as its "
+          f"float64 channels allow; K1 launched "
+          f"{sh['counts']['S=2 rrf']['K1']}x a search (once a shard); "
+          f"search ms S=1 / S=2: rrf {ms[('rrf', 1)]:.3f} / "
+          f"{ms[('rrf', 2)]:.3f}, weighted {ms[('weighted', 1)]:.3f} / "
+          f"{ms[('weighted', 2)]:.3f}; K1 at a shard (Q={SHARD_Q}) "
+          f"{sh['k1_shard']['ms']:.4f} ms, plain "
+          f"{sh['k1_shard']['plain_ms']:.4f} ms, bound "
+          f"{sh['k1_shard']['bound'][0]:.4f} ms; the candidates' gather alone "
+          f"(CUDA events): S=2 {g[2]:.4f} ms, S=4 {g[4]:.4f} ms; 2x2 (data, "
+          f"shard) mesh == S=2 under the tie rule", flush=True)
+    for (backend, pid), rep in sh["workers"].items():
+        print(f"phase 14 ok: {backend} process {pid} of {rep['world']} on "
+              f"cuda:0: ids == this process's S={rep['world']} (tie rule), K1 "
+              f"once a search; CUDA tensors to dist.all_gather: "
+              f"{rep['cuda_all_gather']}; upload {rep['upload_s']:.1f} s, "
+              f"search {rep['search_ms']:.3f} ms, candidates' gather "
+              f"{rep['gather_ms']:.4f} ms", flush=True)
+    print(f"phase 14 ok: PQ over the recovery workload ({RECOVERY_N} codes, "
+          f"{RECOVERY_Q} queries): flat S=4 == S=1 under the tie rule, K2 "
+          f"{sh['counts']['pq S=4']}x a search at S=4 ({ms['pq flat S=4']:.3f}"
+          f" ms, S=1 {ms['pq flat S=1']:.3f} ms; K2 at a shard's "
+          f"{sh['k2_shard']['rows']} codes {sh['k2_shard']['ms']:.4f} ms, "
+          f"plain {sh['k2_shard']['plain_ms']:.4f} ms, bound "
+          f"{sh['k2_shard']['bound'][0]:.4f} ms); IVF at 512 probes a shard "
+          f"({sh['ivf_cells_local']} cells a shard) K2 "
+          f"{sh['counts']['ivf S=4']}x; post-rescore recall@10 " + ", ".join(
+              f"{n} {v}" for n, v in sh["recall"].items())
+          + f" (floors {RECOVERY_FLOOR['flat']}, {RECOVERY_FLOOR['ivf512']})",
+          flush=True)
+    print(f"phase 14 ok: maxsim S=2 == S=1 over {N_MV_SHARDED} docs of the "
+          f"slab; maxsim-rerank S=2 == exact float64 MaxSim over each "
+          f"shard's own dense top-20; fine-tune {FT_STEPS} steps S=2 vs S=1 "
+          f"losses {sh['losses'][2]} vs {sh['losses'][1]} (max rel "
+          f"{sh['loss_rel']:.2e} <= {FT_RTOL}), {ms['finetune S=2']:.0f} vs "
+          f"{ms['finetune S=1']:.0f} ms a step", flush=True)
+    print("phase 14 ok: K2 at seg_rows " + "; ".join(
+        f"{sr} Q={qp}: {t['k2_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), max abs err "
+        f"{t['err']:.3g}" for (sr, qp), t in sh["seg_odd"].items())
+        + f" on {N_PQ} codes (m={PQ_M}); pq_topk(seg_rows) top-20 == float64 "
+        f"ADC under the tie rule, K2 once each; phase wall "
+        f"{sh['wall_s']:.1f} s", flush=True)
+
+
+
 def build_kernels() -> dict:
     """Build every kernel at once (one nvcc each); returns, per kernel,
     its source, build seconds and ptxas registers per instantiation."""
@@ -2702,8 +3232,8 @@ def main() -> int:
               for qp, t in times_i8.items()), flush=True)
 
     # -- 2c/2d. K2 against its plain version, and the recovery workload
-    err_pq, times_pq, recall, (t_data, t_train), times_w, times_sr = \
-        phase_pq(torch, args.seed)
+    (err_pq, times_pq, recall, (t_data, t_train), times_w, times_sr,
+     recovery) = phase_pq(torch, args.seed)
     torch.cuda.empty_cache()
     print(f"phase 2c ok: K2 == plain within {PQ_TOL} (max abs err "
           f"{err_pq:.3g}) on {N_PQ} codes (m={PQ_M}, and random codes at m="
@@ -2921,6 +3451,14 @@ def main() -> int:
     # -- 13. the deployment entry points over phase 9's store
     print_entry_points(phase_entry_points(b))
 
+    # -- 14. multi-GPU sharding on the one card: S=2 and a 2x2 mesh over
+    # the fp32 store, the gloo and NCCL process groups, PQ and IVF at S=4,
+    # both MaxSim modes and the fine-tune at S=2, K2 at odd seg_rows
+    sh = phase_shards(store, engine, recovery, args.seed)
+    del recovery
+    torch.cuda.empty_cache()
+    print_shards(sh)
+
     check("jax" not in sys.modules, "the run imported jax")
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"
                      or m.startswith("legal_rag_tpu."))
@@ -2986,6 +3524,24 @@ def main() -> int:
         ("pq_segmax (K2, eval pq mode)", "pq_segmax.cu",
          "legal_rag_tpu/ops/pq.py:257", ev["counts"]["K2"], ev["k2_err"],
          ev["k2"]["ms"], ev["k2"]["plain_ms"], ev["k2"]["bound"], None),
+        # phase 14: the sharded search at S=2 (fp32, Q=64, once a shard)
+        # at one shard's rows, the time and bound of one launch
+        ("segmax_rm tensor cores (K1, sharded S=2 Q=64)", "segmax_rm.cu",
+         "legal_rag_tpu/ops/dense.py:495",
+         sh["counts"]["S=2 rrf"]["K1"] + sh["counts"]["S=2 weighted"]["K1"],
+         sh["k1_shard"]["err"], sh["k1_shard"]["ms"],
+         sh["k1_shard"]["plain_ms"], sh["k1_shard"]["bound"], None),
+        # PQ flat and IVF at S=4 over the recovery codes (Q=64, once a
+        # shard): one launch over one shard's codes
+        ("pq_segmax (K2, sharded S=4 Q=64)", "pq_segmax.cu",
+         "legal_rag_tpu/ops/pq.py:257",
+         sh["counts"]["pq S=4"] + sh["counts"]["ivf S=4"],
+         sh["k2_shard"]["err"], sh["k2_shard"]["ms"],
+         sh["k2_shard"]["plain_ms"], sh["k2_shard"]["bound"], None),
+        *[(f"pq_segmax (K2, seg_rows {sr}, Q=64)", "pq_segmax.cu",
+           "legal_rag_tpu/ops/pq.py:257", t["launches"], t["err"],
+           t["k2_ms"], t["plain_ms"], t["bound"], None)
+          for (sr, qp), t in sh["seg_odd"].items() if qp == 64],
         ("fused_topk (K3)", "fused_topk.cu", "legal_rag_tpu/ops/dense.py:147",
          k3_launches, err_k3, k3_t["k3_ms"], k3_t["plain_ms"], k3_t["bound"],
          k3_t["library_ms"]),

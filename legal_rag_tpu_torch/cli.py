@@ -402,6 +402,7 @@ def _cmd_finetune(args) -> int:
     tuned, losses = finetune_encoder(
         engine.encoder,
         [c["text"] for c in store.chunks],
+        engine.mesh,
         steps=args.steps,
         batch_size=args.batch,
         learning_rate=args.lr,

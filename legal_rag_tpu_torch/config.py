@@ -136,7 +136,7 @@ class ShardingConfig:
     sharded along the `shard` mesh axis; query batches replicate."""
 
     mesh_axis: str = "shard"
-    num_shards: Optional[int] = None   # None = len(jax.devices())
+    num_shards: Optional[int] = None   # None = every visible CUDA card
 
 
 @dataclasses.dataclass(frozen=True)

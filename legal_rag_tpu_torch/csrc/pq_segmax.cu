@@ -11,7 +11,7 @@
 //                 (r < n_rows ? score[r, q] : -FLT_MAX)
 //
 // written query-major, [n_q, ceil(n_rows / S)], for a segment of S =
-// seg_rows rows, a power of two from 1 to 64 (K1's range).
+// seg_rows rows, any from 1 to 64.
 //
 // What bounds it: a doc is m bytes, so device memory would allow ~70 G
 // docs/s at m = 48, while every doc costs 2m table entries per query.
@@ -44,13 +44,27 @@
 // neighbouring warp, whose 32-row maxima come through the code stage
 // just read. A query tile past the last query skips its empty n-tiles.
 //
+// A seg_rows that is not a power of two takes one more instantiation per
+// query tile (SR = 0, seg_rows a launch argument): its block tile holds
+// the most whole segments that fit in 256 rows, in a multiple of 4 rows
+// so that each tile's codes stay 16-byte aligned (252 rows at seg_rows 3
+// or 12), so no segment straddles two blocks; after the products each
+// lane writes its rows' sums into the code stage just read, a few
+// queries at a time (m / 4 of them fit: 1 KB a query), and the block
+// takes each segment's max from there. The power-of-two instantiations
+// compile as before.
+//
 // Past m = 300 not even 8 queries' tables fit beside the codes, so
 // wider codes go to a second kernel, pq_segmax_lookup_kernel: a thread a
 // doc, one shared-memory table read per (doc, query, subspace) (the 16
 // bf16 entries of a table row span 8 banks, so a warp's lanes never
 // conflict), the segment max over seg_rows adjacent threads by shuffles
 // (for 64 rows, two warps through 64 bytes of shared memory past the
-// tables). The wrapper picks by the code width.
+// tables). A seg_rows that is not a power of two takes a twin of it,
+// pq_segmax_lookup_any_kernel, whose block turn holds whole segments
+// (510 rows at seg_rows 3) and takes their maxima from the turn's sums in
+// 2 KB of shared memory past the tables. The wrapper picks by the code
+// width.
 //
 // Numerics: the sums of bf16 entries run in fp32, in the tensor cores'
 // order or in subspace order, so they can differ from the plain
@@ -72,6 +86,7 @@ constexpr int kMT = 2;            // m-tiles a warp
 constexpr int kLookupThreads = 512;   // the lookup kernel: a doc a thread
 constexpr int kLookupMaxQ = 64;       // its most queries a block
 constexpr int kLookupXchBytes = 2 * (kLookupThreads / 64) * 4;   // 64-row exchange
+constexpr int kLookupAnyBytes = kLookupThreads * 4;   // a turn's sums, any seg_rows
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kOne = 0x3f80u;          // bf16 1.0
 
@@ -79,6 +94,15 @@ __host__ __device__ constexpr long long table_pitch(int m) { return 64LL * m + 1
 
 long long smem_bytes(int m, int qt, int stages) {
   return qt * table_pitch(m) + static_cast<long long>(stages) * kTile * m;
+}
+
+__host__ __device__ constexpr bool pow2(int x) { return (x & (x - 1)) == 0; }
+
+// rows of a block tile at a seg_rows that is not a power of two: whole
+// segments, a multiple of lcm(seg_rows, 4) (module note)
+__host__ __device__ constexpr int any_tile_rows(int seg_rows) {
+  const int l = seg_rows % 4 == 0 ? seg_rows : seg_rows % 2 == 0 ? 2 * seg_rows : 4 * seg_rows;
+  return kTile / l * l;
 }
 
 // The A fragment of one subspace for a row whose nibble is c: bf16
@@ -114,13 +138,14 @@ __device__ __forceinline__ void copy_any(int vec, char* dst, const char* src,
 }
 
 // NT n-tiles of 8 queries; SR = seg_rows, a template argument so that
-// each segment's reduction compiles to its own fixed steps
+// each segment's reduction compiles to its own fixed steps, or 0 for a
+// seg_rows that is not a power of two (then ``seg_rows``; unread else)
 template <int NT, int SR>
 __global__ void __launch_bounds__(kThreads)
 pq_segmax_kernel(const uint8_t* __restrict__ codes,
                  const unsigned short* __restrict__ lut,   // [n_q, 2m, 16]
                  float* __restrict__ out, long long n_rows, int m, int n_q,
-                 int stages, int vec_c) {
+                 int stages, int vec_c, int seg_rows) {
   constexpr int QT = NT * 8;
   extern __shared__ uint4 smem[];
   char* tab = reinterpret_cast<char*>(smem);              // [QT][pitch]
@@ -145,13 +170,19 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
     mma::cp_async<16>(tab + r * tp + c, src, real ? 16 : 0);
   }
 
-  const long long n_tiles = (n_rows + kTile - 1) / kTile;
+  const int any_rows = SR > 0 ? kTile : any_tile_rows(seg_rows);
+  const long long n_tiles = (n_rows + any_rows - 1) / any_rows;
   const long long my_tiles =
       blockIdx.x < n_tiles ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
   const long long total_bytes = n_rows * m;
   auto load_tile = [&](long long it, int stage) {
     const long long tile = blockIdx.x + it * gridDim.x;
-    const long long b0 = tile * tile_bytes;
+    long long b0;
+    if constexpr (SR > 0) {
+      b0 = tile * tile_bytes;
+    } else {
+      b0 = tile * any_rows * m;
+    }
     copy_any(vec_c, ring + stage * tile_bytes,
              reinterpret_cast<const char*>(codes) + b0, total_bytes - b0, tile_bytes);
   };
@@ -161,7 +192,7 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
   // ldmatrix row addresses into the tables: pairs of n-tiles (x4) and a
   // last single one (x2)
   const char* b_l = tab + ((lane & 7) + (lane >> 4) * 8) * tp + ((lane >> 3) & 1) * 16;
-  const long long n_segs = (n_rows + SR - 1) / SR;
+  const long long n_segs = SR > 0 ? (n_rows + SR - 1) / SR : (n_rows + seg_rows - 1) / seg_rows;
   const int words = m / 4;
 
   for (long long it = 0; it < my_tiles; ++it) {
@@ -174,7 +205,12 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
     }
     __syncthreads();
     const char* ct = ring + (stages == 2 ? static_cast<int>(it & 1) : 0) * tile_bytes;
-    const long long row0 = (blockIdx.x + it * gridDim.x) * kTile + warp * 32;
+    long long row0;
+    if constexpr (SR > 0) {
+      row0 = (blockIdx.x + it * gridDim.x) * kTile + warp * 32;
+    } else {
+      row0 = (blockIdx.x + it * gridDim.x) * any_rows + warp * 32;
+    }
     // this lane's rows: m-tile mt, half h -> row warp * 32 + mt * 16 + g + 8h
     const char* crow[kMT][2];
 #pragma unroll
@@ -240,6 +276,42 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
             acc[mt][nt][2 * h] = -FLT_MAX;
             acc[mt][nt][2 * h + 1] = -FLT_MAX;
           }
+    if constexpr (SR == 0) {
+      // whole segments of this tile, their rows' sums through the code
+      // stage, qc queries a turn (module note)
+      float* sums = reinterpret_cast<float*>(const_cast<char*>(ct));
+      const int qc = min(QT, tile_bytes / (kTile * 4));
+      const int segs = any_rows / seg_rows;
+      const long long seg0 = (row0 - warp * 32) / seg_rows;
+      for (int qa = 0; qa < active * 8; qa += qc) {
+        __syncthreads();             // the stage's codes or sums are read
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int ql = nt * 8 + 2 * static_cast<int>(t) + j - qa;
+                if (nt < active && ql >= 0 && ql < qc)
+                  sums[ql * kTile + warp * 32 + mt * 16 + g + 8 * h] = acc[mt][nt][2 * h + j];
+              }
+        __syncthreads();
+        const int qn = min(qc, active * 8 - qa);     // this tile's queries
+        for (int i = threadIdx.x; i < qn * segs; i += kThreads) {
+          const int ql = i / segs;
+          const int sg = i - ql * segs;
+          const int q = q0 + qa + ql;
+          const long long seg = seg0 + sg;
+          if (q >= n_q || seg >= n_segs) continue;
+          const float* r = sums + ql * kTile + sg * seg_rows;
+          float v = r[0];
+          for (int k = 1; k < seg_rows; ++k) v = fmaxf(v, r[k]);
+          out[static_cast<long long>(q) * n_segs + seg] = v;
+        }
+      }
+    } else {
 #pragma unroll
     for (int x = 4; x < 32 && (x >> 2) < SR; x <<= 1)
 #pragma unroll
@@ -309,6 +381,7 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
             }
         }
     }
+    }
     __syncthreads();                 // the stage is free for the next load
     if (stages == 1 && it + 1 < my_tiles) {
       load_tile(it + 1, 0);
@@ -321,7 +394,7 @@ pq_segmax_kernel(const uint8_t* __restrict__ codes,
 template <int NT, int SR>
 cudaError_t launch(const void* codes, const void* lut, float* out,
                    long long n_rows, int m, int n_q, int stages, int vec_c,
-                   size_t smem, int device, cudaStream_t stream) {
+                   int seg_rows, size_t smem, int device, cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
   auto kernel = pq_segmax_kernel<NT, SR>;
   cudaError_t err = setup::allow_max_smem(kernel, device, ready);
@@ -335,7 +408,8 @@ cudaError_t launch(const void* codes, const void* lut, float* out,
   // (the tiles run one after another); each stages its tables once and
   // walks the doc tiles
   const long long n_qt = (n_q + NT * 8 - 1) / (NT * 8);
-  const long long n_tiles = (n_rows + kTile - 1) / kTile;
+  const int tile_rows = SR > 0 ? kTile : any_tile_rows(seg_rows);
+  const long long n_tiles = (n_rows + tile_rows - 1) / tile_rows;
   long long blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (blocks > n_tiles) blocks = n_tiles;
   if (blocks < 1) blocks = 1;
@@ -343,7 +417,7 @@ cudaError_t launch(const void* codes, const void* lut, float* out,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(codes),
       static_cast<const unsigned short*>(lut), out, n_rows, m, n_q, stages,
-      vec_c);
+      vec_c, seg_rows);
   return cudaGetLastError();
 }
 
@@ -353,25 +427,25 @@ cudaError_t launch_tile(const void* codes, const void* lut, float* out,
                         int stages, int vec_c, size_t smem, int device,
                         cudaStream_t stream) {
   switch (seg_rows) {
-    case 1: return launch<NT, 1>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
-    case 2: return launch<NT, 2>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
-    case 4: return launch<NT, 4>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
-    case 8: return launch<NT, 8>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
-    case 16: return launch<NT, 16>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
-    case 32: return launch<NT, 32>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
-    case 64: return launch<NT, 64>(codes, lut, out, n_rows, m, n_q, stages, vec_c, smem, device, stream);
-    default: return cudaErrorInvalidValue;
+    case 1: return launch<NT, 1>(codes, lut, out, n_rows, m, n_q, stages, vec_c, 1, smem, device, stream);
+    case 2: return launch<NT, 2>(codes, lut, out, n_rows, m, n_q, stages, vec_c, 2, smem, device, stream);
+    case 4: return launch<NT, 4>(codes, lut, out, n_rows, m, n_q, stages, vec_c, 4, smem, device, stream);
+    case 8: return launch<NT, 8>(codes, lut, out, n_rows, m, n_q, stages, vec_c, 8, smem, device, stream);
+    case 16: return launch<NT, 16>(codes, lut, out, n_rows, m, n_q, stages, vec_c, 16, smem, device, stream);
+    case 32: return launch<NT, 32>(codes, lut, out, n_rows, m, n_q, stages, vec_c, 32, smem, device, stream);
+    case 64: return launch<NT, 64>(codes, lut, out, n_rows, m, n_q, stages, vec_c, 64, smem, device, stream);
+    default: return launch<NT, 0>(codes, lut, out, n_rows, m, n_q, stages, vec_c, seg_rows, smem, device, stream);
   }
 }
 
-bool valid_seg_rows(int seg_rows) {
-  return seg_rows >= 1 && seg_rows <= 64 && (seg_rows & (seg_rows - 1)) == 0;
-}
+bool valid_seg_rows(int seg_rows) { return seg_rows >= 1 && seg_rows <= 64; }
 
 // the lookup kernel's dynamic shared memory: the query tile's tables,
-// and at 64 rows a segment the warps' exchange
+// and at 64 rows a segment the warps' exchange, at a seg_rows that is not
+// a power of two the turn's sums
 long long lookup_smem_bytes(int m, int q_tile, int seg_rows) {
-  return static_cast<long long>(q_tile) * 64 * m + (seg_rows == 64 ? kLookupXchBytes : 0);
+  return static_cast<long long>(q_tile) * 64 * m +
+         (seg_rows == 64 ? kLookupXchBytes : pow2(seg_rows) ? 0 : kLookupAnyBytes);
 }
 
 }  // namespace
@@ -439,14 +513,67 @@ pq_segmax_lookup_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+// The lookup kernel at a seg_rows that is not a power of two (module
+// note): a block turn of whole segments, their maxima from the turn's
+// sums in shared memory.
+__global__ void __launch_bounds__(kLookupThreads)
+pq_segmax_lookup_any_kernel(const uint8_t* __restrict__ codes,
+                            const unsigned short* __restrict__ lut,   // [n_q, 2m, 16]
+                            float* __restrict__ out, long long n_rows, int m,
+                            int n_q, int q_tile_max, int seg_rows) {
+  const int words = m / 4;
+  const int lut_len = 32 * m;
+  extern __shared__ unsigned short tab[];    // [q_tile, 2m, 16]
+  float* sums = reinterpret_cast<float*>(tab + q_tile_max * lut_len);
+  const int q0 = blockIdx.y * q_tile_max;
+  const int q_tile = min(q_tile_max, n_q - q0);
+  const unsigned short* src = lut + static_cast<long long>(q0) * lut_len;
+  for (int i = threadIdx.x; i < q_tile * lut_len; i += kLookupThreads) tab[i] = src[i];
+  __syncthreads();
+
+  const long long n_segs = (n_rows + seg_rows - 1) / seg_rows;
+  const int segs = kLookupThreads / seg_rows;      // whole segments a turn
+  const int rows = segs * seg_rows;
+  const long long stride = static_cast<long long>(gridDim.x) * rows;
+  // the bound is the block's first row, the same for every thread
+  for (long long base = static_cast<long long>(blockIdx.x) * rows; base < n_rows;
+       base += stride) {
+    const long long row = base + threadIdx.x;
+    const bool valid = static_cast<int>(threadIdx.x) < rows && row < n_rows;
+    const uint32_t* r = reinterpret_cast<const uint32_t*>(codes + (valid ? row * m : 0));
+    for (int q = 0; q < q_tile; ++q) {
+      const unsigned short* t = tab + q * lut_len;
+      float acc = 0.f;
+      for (int i = 0; i < words; ++i) {
+        const uint32_t wi = valid ? __ldg(r + i) : 0u;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          acc += bf16_bits_to_float(t[(i * 8 + b) * 16 + ((wi >> (4 * b)) & 0xF)]);
+        }
+      }
+      __syncthreads();               // the last turn's sums are read
+      sums[threadIdx.x] = valid ? acc : -FLT_MAX;
+      __syncthreads();
+      const long long seg = base / seg_rows + threadIdx.x;
+      if (static_cast<int>(threadIdx.x) < segs && seg < n_segs) {
+        const float* s = sums + threadIdx.x * seg_rows;
+        float v = s[0];
+        for (int k = 1; k < seg_rows; ++k) v = fmaxf(v, s[k]);
+        out[static_cast<long long>(q0 + q) * n_segs + seg] = v;
+      }
+    }
+  }
+}
+
 static cudaError_t launch_lookup(const void* codes, const void* lut,
                                  float* out, long long n_rows, int m, int n_q,
                                  int q_tile, int seg_rows, int device,
                                  cudaStream_t stream) {
-  static std::atomic<unsigned long long> ready{0};
-  auto kernel = pq_segmax_lookup_kernel;
+  static std::atomic<unsigned long long> ready{0}, ready_any{0};
+  const bool any = !pow2(seg_rows);
+  auto kernel = any ? pq_segmax_lookup_any_kernel : pq_segmax_lookup_kernel;
   const size_t smem = static_cast<size_t>(lookup_smem_bytes(m, q_tile, seg_rows));
-  cudaError_t err = setup::allow_max_smem(kernel, device, ready);
+  cudaError_t err = setup::allow_max_smem(kernel, device, any ? ready_any : ready);
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
   if ((err = setup::sm_count(device, &sms)) != cudaSuccess) return err;
@@ -456,7 +583,8 @@ static cudaError_t launch_lookup(const void* codes, const void* lut,
   // persistent blocks: each stages its query tile's tables once, then
   // walks the rows with a grid stride
   const long long n_pad = (n_rows + seg_rows - 1) / seg_rows * seg_rows;
-  long long blocks = (n_pad + kLookupThreads - 1) / kLookupThreads;
+  const int turn = any ? kLookupThreads / seg_rows * seg_rows : kLookupThreads;
+  long long blocks = (n_pad + turn - 1) / turn;
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
@@ -477,7 +605,7 @@ extern "C" int pq_segmax_smem_bytes(int m, int qt, int stages) {
 
 // codes [n_rows, m] uint8 row-major (m % 4 == 0; 4-byte aligned), lut
 // [n_q, 2m, 16] bf16 (16-byte aligned), out [n_q, ceil(n_rows /
-// seg_rows)] float32, seg_rows 1, 2, 4, 8, 16, 32 or 64; qt (8, 16, 32
+// seg_rows)] float32, seg_rows 1 to 64; qt (8, 16, 32
 // or 64) queries a block, stages (1 or 2) code tiles in flight, vec_c
 // the copy width (16, 8 or 4) the codes' base address allows. Returns the CUDA error of the launch (0 on success);
 // the kernel runs asynchronously on ``stream``.

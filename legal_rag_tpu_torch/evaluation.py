@@ -353,6 +353,7 @@ def compare_encoders(
     finetune_batch: int = 32,
     ks: Sequence[int] = (1, 5, 10),
     max_pairs: Optional[int] = None,
+    mesh=None,
     log_fn=None,
     device="cuda",
 ) -> Dict:
@@ -365,7 +366,9 @@ def compare_encoders(
     """
     from legal_rag_tpu_torch.index.builder import build_index
     from legal_rag_tpu_torch.models.finetune import finetune_encoder
+    from legal_rag_tpu_torch.parallel.mesh import make_mesh
 
+    mesh = mesh or make_mesh(config.sharding.num_shards, device=device)
     store = build_index(chunks, config=config, device=device)
     pairs = labeled_pairs_from_chunks(
         store.chunks, max_pairs=max_pairs
@@ -385,6 +388,7 @@ def compare_encoders(
     tuned, losses = finetune_encoder(
         engine.encoder,
         [c["text"] for c in store.chunks],
+        mesh,
         steps=finetune_steps,
         batch_size=finetune_batch,
         log_fn=log_fn,

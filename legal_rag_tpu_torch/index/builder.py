@@ -189,11 +189,13 @@ def build_index(
         )
     if finetune_steps > 0:
         from legal_rag_tpu_torch.models.finetune import finetune_encoder
+        from legal_rag_tpu_torch.parallel.mesh import make_mesh
 
         with timer.stage("finetune"):
             encoder, losses = finetune_encoder(
                 encoder,
                 texts,
+                make_mesh(config.sharding.num_shards, device=device),
                 steps=finetune_steps,
                 log_fn=log_fn,
                 chunks=chunks,

@@ -246,6 +246,7 @@ def fixed_length(a: np.ndarray, rows: int, max_len: int, fill: int,
 def finetune_encoder(
     encoder: SentenceEncoder,
     texts: Sequence[str],
+    mesh=None,
     steps: int = 100,
     batch_size: int = 32,
     learning_rate: float = 2e-5,
@@ -263,17 +264,23 @@ def finetune_encoder(
     a NEW SentenceEncoder holding the trained params (tokenizer shared)
     plus the loss history. ``encoder`` itself is left as it was.
 
-    Negatives are the whole batch. ``token_maxsim_weight`` blends in the
+    ``mesh`` (None: ``encoder``'s device alone): the step is
+    data-parallel over its ``shard`` axis, and ``batch_size``, the
+    GLOBAL batch, rounds up to a multiple of its shard count, as in the
+    JAX package. Negatives are the whole global batch. ``token_maxsim_weight`` blends in the
     token-level late-interaction term (models/train.py
     contrastive_loss); 0.0 = the pooled-only recipe. The pairs are drawn
     from ``np.random.default_rng(seed)`` in the JAX package's order.
     """
     device = encoder.device
+    n_shards = 1 if mesh is None else mesh.shape["shard"]
+    if batch_size % n_shards:
+        batch_size += n_shards - batch_size % n_shards
     model = copy.deepcopy(encoder.model)
     optimizer = adamw(model.parameters(), learning_rate)
     step = make_train_step(
         model, optimizer, temperature=temperature,
-        maxsim_weight=token_maxsim_weight,
+        maxsim_weight=token_maxsim_weight, mesh=mesh,
     )
 
     rng = np.random.default_rng(seed)

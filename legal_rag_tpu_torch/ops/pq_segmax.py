@@ -9,8 +9,8 @@ For packed codes ``codes [N, m]`` (byte ``b`` holds nibble subspaces
                     (r < N ? score[r, q] : finfo.min)
 
 query-major, ``[Q, ceil(N / S)]`` float32, for segments of ``S =
-seg_rows`` rows (8 by default; the kernels take the powers of two 1-64,
-as K1 does). It replaces the TPU kernel
+seg_rows`` rows (8 by default; the kernels take every seg_rows from 1
+to 64). It replaces the TPU kernel
 ``legal_rag_tpu/ops/pq.py _pq_segmax_kernel``; the tables are the bf16
 values that kernel reads, summed in fp32.
 
@@ -40,7 +40,7 @@ import torch
 from legal_rag_tpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 SEG_ROWS = 8                          # the default segment: 8 rows
-SUPPORTED_SEG_ROWS = (1, 2, 4, 8, 16, 32, 64)   # the segments the kernels take
+SUPPORTED_SEG_ROWS = tuple(range(1, 65))   # the segments the kernels take
 QUERY_TILES = (64, 32, 16, 8)         # the kernel's builds, widest first
 MAX_SMEM = 232_448                    # dynamic shared memory a block can take
 _TILE = 256                           # docs a tensor-core block tile
@@ -83,13 +83,19 @@ def launch_plan(m: int, n_q: int) -> Plan:
 TC_MAX_M = max(m for m in range(4, 1024, 4) if smem_bytes(m, 8, 1) <= MAX_SMEM)
 MAX_M = MAX_SMEM // 64 // 4 * 4
 _LOOKUP_XCH = 64                      # the lookup kernel's 64-row exchange
+_LOOKUP_SUMS = 512 * 4                # its turn's sums at other seg_rows
 
 
 def lookup_smem_bytes(m: int, q_tile: int, seg_rows: int) -> int:
     """The lookup kernel's shared memory: ``q_tile`` queries' tables
-    and, at 64 rows a segment, 64 bytes where two warps meet;
+    and, at 64 rows a segment, 64 bytes where two warps meet, or at a
+    seg_rows that is not a power of two the 512 sums of a block's turn;
     ``pq_segmax.cu lookup_smem_bytes`` computes the same."""
-    return q_tile * 64 * m + (_LOOKUP_XCH if seg_rows == 64 else 0)
+    if seg_rows == 64:
+        extra = _LOOKUP_XCH
+    else:
+        extra = 0 if seg_rows & (seg_rows - 1) == 0 else _LOOKUP_SUMS
+    return q_tile * 64 * m + extra
 
 
 def unpack_nibbles(codes: torch.Tensor) -> torch.Tensor:
@@ -172,12 +178,12 @@ def pq_segmax(
         )
     if seg_rows not in SUPPORTED_SEG_ROWS:
         raise ValueError(f"pq_segmax: seg_rows={seg_rows}; the kernels take "
-                         f"{SUPPORTED_SEG_ROWS}")
+                         "1 to 64")
     if m % 4 or not 0 < m <= MAX_M or (
             m > TC_MAX_M and lookup_smem_bytes(m, 1, seg_rows) > MAX_SMEM):
         raise ValueError(f"pq_segmax: m={m}; the kernel takes m % 4 == 0 "
-                         f"up to {MAX_M} (at seg_rows 64, one query's "
-                         "tables and the warps' exchange must fit)")
+                         f"up to {MAX_M} (one query's tables must fit "
+                         "beside the segments' exchange)")
     if n == 0 or q == 0:
         raise ValueError(f"pq_segmax: need N > 0 and Q > 0 (got {n}, {q})")
     if not (codes.is_contiguous() and lut.is_contiguous()):

@@ -5,8 +5,10 @@ interface for the orchestrator and the HTTP layer (``.store``,
 ``.config``, ``.encoder``, ``.timer``, ``search_batch``,
 ``enable_request_coalescing``), one ``[Q, D]`` query matrix per call,
 and the same power-of-two query bucketing and postings budget. The
-device work is :func:`legal_rag_tpu_torch.parallel.sharded.hybrid_search`
-on one device, over the storage tier that ``config.dense.dtype`` names:
+device work is :func:`legal_rag_tpu_torch.parallel.sharded.sharded_hybrid_search`
+over the engine's mesh (``mesh=``, else ``config.sharding.num_shards``
+devices of the engine's kind: every visible card by default, one on a
+one-card machine), over the storage tier that ``config.dense.dtype`` names:
 float32, bfloat16, int8 or pq (with IVF pruning when the store carries
 IVF cells and ``dense.use_ivf`` is set). The int8 and pq tiers
 oversample their candidates and, in weighted mode, rescore them exactly
@@ -37,8 +39,9 @@ from legal_rag_tpu_torch.ops.dense import exact_rescore
 from legal_rag_tpu_torch.ops.maxsim import (
     minilm_token_and_pooled, scan_block_n,
 )
+from legal_rag_tpu_torch.parallel.mesh import make_mesh
 from legal_rag_tpu_torch.parallel.sharded import (
-    ShardedIndex, ShardedMultiVectorIndex, hybrid_search,
+    ShardedIndex, ShardedMultiVectorIndex, sharded_hybrid_search,
 )
 
 logger = logging.getLogger("LegalRAG-RetrievalEngine")
@@ -76,6 +79,7 @@ class RetrievalEngine:
         config: RetrievalConfig = DEFAULT_CONFIG,
         encoder: Optional[SentenceEncoder] = None,
         device="cuda",
+        mesh=None,
     ):
         # fp32 matmuls in full fp32 on the GPU: the reference computes
         # with Precision.HIGHEST, and TF32 keeps about three digits
@@ -119,18 +123,20 @@ class RetrievalEngine:
                 "different encoder (see manifest['encoder'])"
             )
         self.encoder = encoder
+        self.mesh = mesh or make_mesh(config.sharding.num_shards,
+                                      device=self.device)
         if config.dense.dtype == "pq" and store.pq_codes is not None:
             # build-time PQ artifacts: loads skip k-means
             ivf = store.ivf_index() if config.dense.use_ivf else None
             if ivf is not None:
                 self.index = ShardedIndex.from_pq_ivf(
-                    ivf, store.pq_codebooks, rotation=store.pq_rotation,
-                    device=self.device,
+                    ivf, store.pq_codebooks, self.mesh,
+                    rotation=store.pq_rotation,
                 )
             else:
                 self.index = ShardedIndex.from_pq(
-                    store.pq_codes, store.pq_codebooks,
-                    rotation=store.pq_rotation, device=self.device,
+                    store.pq_codes, store.pq_codebooks, self.mesh,
+                    rotation=store.pq_rotation,
                 )
         else:
             if config.dense.dtype == "pq":
@@ -143,8 +149,8 @@ class RetrievalEngine:
                     store.n_docs, config.dense.pq_m,
                 )
             self.index = ShardedIndex.from_embeddings(
-                store.embeddings, dtype=config.dense.dtype,
-                device=self.device, pq_m=config.dense.pq_m,
+                store.embeddings, self.mesh, dtype=config.dense.dtype,
+                pq_m=config.dense.pq_m,
             )
 
     # -- native batched API -------------------------------------------------
@@ -258,7 +264,7 @@ class RetrievalEngine:
         with self.timer.stage("device_search"):
             dev = self.device
             idx = self.index
-            scores, ids, sem, key = hybrid_search(
+            scores, ids, sem, key = sharded_hybrid_search(
                 idx.docs,
                 torch.from_numpy(post_ids).to(dev),
                 torch.from_numpy(post_w).to(dev),
@@ -268,6 +274,7 @@ class RetrievalEngine:
                 idx.pq_codebooks,
                 idx.ivf_centroids,
                 idx.ivf_doc_ids,
+                mesh=self.mesh,
                 k=k_dev,
                 c=max(cfg.fusion.candidate_multiplier * k_dev, k_dev),
                 n_docs=self.store.n_docs,
@@ -342,8 +349,8 @@ class RetrievalEngine:
             if self.index.docs.dtype in (torch.float32, torch.bfloat16):
                 n_pad = int(self.index.docs.shape[0])
             mv = ShardedMultiVectorIndex.from_arrays(
-                self.store.mv_tokens, self.store.mv_mask, n_pad=n_pad,
-                device=self.device,
+                self.store.mv_tokens, self.store.mv_mask, self.mesh,
+                n_pad=n_pad,
             )
             self._mv_index = mv
         return mv

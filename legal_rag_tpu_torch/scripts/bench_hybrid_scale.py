@@ -3,7 +3,7 @@ docs on one CUDA card: the counterpart of the JAX package's
 ``scripts/bench_hybrid_scale.py``, with its measurements and its data
 from seed 0.
 
-1. ``hybrid_search`` ms a batch of 64 queries at N docs (``HYB_N``,
+1. ``sharded_hybrid_search`` (one card) ms a batch of 64 queries at N docs (``HYB_N``,
    default 1,000,000), bf16 docs, k=10, c=20, weighted at w=0.5, with
    the postings budget capped (``BM25Config.postings_budget_cap``) and
    uncapped. At N >= ``TWOPHASE_MIN_DOCS`` (393,216) the dense stage is
@@ -39,7 +39,10 @@ import torch
 from legal_rag_tpu_torch.config import BM25Config
 from legal_rag_tpu_torch.ops.segmax_rm import K1
 from legal_rag_tpu_torch.ops.sparse import BM25Index, bm25_topk
-from legal_rag_tpu_torch.parallel.sharded import ShardedIndex, hybrid_search
+from legal_rag_tpu_torch.parallel.mesh import make_mesh
+from legal_rag_tpu_torch.parallel.sharded import (
+    ShardedIndex, sharded_hybrid_search,
+)
 from legal_rag_tpu_torch.scripts.exp_common import Log, card_main
 
 N = 1_000_000
@@ -169,7 +172,8 @@ def run(n: int = N, device="cuda", seed: int = 0, log: Log = print,
     log(f"capped sparse recall@{K} vs exact: {sparse_recall:.4f}")
 
     docs, q_emb = make_embeddings(rng, n)
-    sidx = ShardedIndex.from_embeddings(docs, dtype="bfloat16", device=device)
+    sidx = ShardedIndex.from_embeddings(docs, make_mesh(1, device=device),
+                                        dtype="bfloat16")
     del docs
     d_q = torch.from_numpy(q_emb).to(device)
     d_w = torch.full((Q,), WEIGHT, dtype=torch.float32, device=device)
@@ -182,7 +186,8 @@ def run(n: int = N, device="cuda", seed: int = 0, log: Log = print,
         d_pw = torch.from_numpy(pw).to(device)
 
         def search(d_pid=d_pid, d_pw=d_pw):
-            return hybrid_search(sidx.docs, d_pid, d_pw, d_q, d_w, k=K,
+            return sharded_hybrid_search(sidx.docs, d_pid, d_pw, d_q, d_w,
+                                         mesh=sidx.mesh, k=K,
                                  c=2 * K, n_docs=n, mode="weighted")
 
         f, ids, _, _ = search()

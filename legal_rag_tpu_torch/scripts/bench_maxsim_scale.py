@@ -31,6 +31,7 @@ from typing import Callable, Dict
 
 import torch
 
+from legal_rag_tpu_torch.parallel.mesh import as_global, make_mesh
 from legal_rag_tpu_torch.parallel.sharded import (
     ShardedIndex, ShardedMultiVectorIndex,
 )
@@ -55,11 +56,15 @@ def make_data(n: int, q: int, device, seed: int = 0):
         t = emb[lo:hi, None, :] + 0.25 * torch.randn(
             (hi - lo, TD, D), generator=g, device=device)
         slab[lo:hi] = (t / t.norm(dim=2, keepdim=True)).to(torch.bfloat16)
-    sidx = ShardedIndex(docs=emb.to(torch.bfloat16), n_docs=n)
+    mesh = make_mesh(1, device=device)
+    sidx = ShardedIndex(docs=as_global(emb.to(torch.bfloat16), mesh, "shard"),
+                        mesh=mesh, n_docs=n)
     midx = ShardedMultiVectorIndex(
-        doc_tokens=slab,
-        doc_mask=torch.ones((n, TD), dtype=torch.int32, device=device),
-        n_docs=n,
+        doc_tokens=as_global(slab, mesh, "shard"),
+        doc_mask=as_global(
+            torch.ones((n, TD), dtype=torch.int32, device=device), mesh,
+            "shard"),
+        mesh=mesh, n_docs=n,
     )
     targets = torch.randperm(n, generator=g, device=device)[:q]
     qt = slab[targets, :TQ].float()

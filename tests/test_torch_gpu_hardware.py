@@ -82,9 +82,11 @@ def test_fused_kernel_tie_break_on_hardware(cuda):
 
 
 def test_hybrid_search_end_to_end_on_card(cuda):
-    """The one-device hybrid search on the card: recall against an
+    """The one-card sharded hybrid search (S=1) on the card: recall against an
     exact golden."""
-    from legal_rag_tpu_torch.parallel.sharded import ShardedIndex, hybrid_search
+    from legal_rag_tpu_torch.parallel.sharded import (
+        ShardedIndex, sharded_hybrid_search,
+    )
 
     rng = np.random.default_rng(0)
     n, d, q, k = 5000, 128, 16, 10
@@ -93,9 +95,9 @@ def test_hybrid_search_end_to_end_on_card(cuda):
     idx = ShardedIndex.from_embeddings(docs, device=cuda)
     pi = torch.full((q, 64), n, dtype=torch.int32, device=cuda)
     pw = torch.zeros((q, 64), device=cuda)
-    _, ids, _, _ = hybrid_search(
+    _, ids, _, _ = sharded_hybrid_search(
         idx.docs, pi, pw, torch.from_numpy(qe).to(cuda),
-        torch.zeros(q, device=cuda), k=k, c=2 * k, n_docs=n,
+        torch.zeros(q, device=cuda), mesh=idx.mesh, k=k, c=2 * k, n_docs=n,
         mode="weighted",
     )
     gold = np.argsort(-(qe @ docs.T), axis=1)[:, :k]
@@ -127,7 +129,9 @@ def test_twophase_kernel_on_card(cuda):
 def test_int8_rescore_on_card(cuda):
     """int8 index (K1-int8) + fp32 rescore restores exact ordering."""
     from legal_rag_tpu_torch.ops.dense import exact_rescore
-    from legal_rag_tpu_torch.parallel.sharded import ShardedIndex, hybrid_search
+    from legal_rag_tpu_torch.parallel.sharded import (
+        ShardedIndex, sharded_hybrid_search,
+    )
 
     rng = np.random.default_rng(2)
     base = rng.standard_normal((64, 64)).astype(np.float32)
@@ -140,9 +144,9 @@ def test_int8_rescore_on_card(cuda):
     pi = torch.full((8, 8), n, dtype=torch.int32, device=cuda)
     pw = torch.zeros((8, 8), device=cuda)
     w = np.zeros(8, np.float32)
-    _, ids8, _, key8 = hybrid_search(
+    _, ids8, _, key8 = sharded_hybrid_search(
         idx.docs, pi, pw, torch.from_numpy(qe).to(cuda),
-        torch.from_numpy(w).to(cuda), idx.doc_scales, k=4 * k, c=8 * k,
+        torch.from_numpy(w).to(cuda), idx.doc_scales, mesh=idx.mesh, k=4 * k, c=8 * k,
         n_docs=n, mode="weighted",
     )
     _, ids, _, _ = exact_rescore(qe, ids8.cpu().numpy(), docs,

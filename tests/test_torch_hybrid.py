@@ -1,8 +1,9 @@
-"""``hybrid_search`` (one device) against the JAX package's
-``sharded_hybrid_search`` on 1- and 8-device meshes: weighted and RRF
-fusion, scatter and segment-sum BM25, with the large-N dispatch forced
-down so both sides take the two-phase path around K1 (a counter on each
-side shows that they did).
+"""The port's ``sharded_hybrid_search`` against the JAX package's at the
+same mesh size, 1 and 8 shards (the port's mesh of 8 CPU entries, JAX's
+8 virtual CPU devices): weighted and RRF fusion, scatter and segment-sum
+BM25, with the large-N dispatch forced down so both sides take the
+two-phase path around K1 in every shard (a counter on each side shows
+that they did).
 
 Tolerance: fused and semantic scores atol 1e-5 (fp32 sums in another
 order); ids exact. Postings carry continuous random weights so no two
@@ -18,8 +19,13 @@ import legal_rag_tpu.parallel.sharded as jsh
 import legal_rag_tpu_torch.ops.dense as tdense
 import legal_rag_tpu_torch.parallel.sharded as tsh
 from legal_rag_tpu.parallel.mesh import make_mesh
+from legal_rag_tpu_torch.parallel.mesh import Mesh
 
 FORCED = 2048   # TWOPHASE_MIN_DOCS = TWOPHASE_BLOCK_N; fp32 blocks of 1024
+
+
+def cpu_mesh(n_shards: int) -> Mesh:
+    return Mesh(["cpu"] * n_shards, ("shard",))
 
 
 def _inputs(n, d=64, q=8, p=512, seed=41):
@@ -80,13 +86,14 @@ def test_hybrid_matches_sharded_reference(
         jnp.asarray(weights), mesh=mesh, k=k, c=c, n_docs=n, mode=mode,
         sparse_mode=sparse_mode,
     )
-    tidx = tsh.ShardedIndex.from_embeddings(docs, device="cpu")
-    got = tsh.hybrid_search(
+    tmesh = cpu_mesh(n_dev)
+    tidx = tsh.ShardedIndex.from_embeddings(docs, tmesh, device="cpu")
+    got = tsh.sharded_hybrid_search(
         tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
-        torch.from_numpy(q_emb), torch.from_numpy(weights),
+        torch.from_numpy(q_emb), torch.from_numpy(weights), mesh=tmesh,
         k=k, c=c, n_docs=n, mode=mode, sparse_mode=sparse_mode,
     )
-    assert forced_twophase["jax"] >= 1 and forced_twophase["torch"] == 1
+    assert forced_twophase["jax"] >= 1 and forced_twophase["torch"] == n_dev
     assert tidx.docs.shape[0] % FORCED == 0
     f, i, sem, key = (x.numpy() for x in got)
     rf, ri, rsem, rkey = (np.asarray(x) for x in ref)
@@ -103,11 +110,11 @@ def test_small_shard_takes_the_matmul_path(monkeypatch):
     monkeypatch.setattr(tdense, "segmax_rm",
                         lambda *a, **kw: calls.append(1))
     docs, ids, w, q_emb, weights = _inputs(600)
-    tidx = tsh.ShardedIndex.from_embeddings(docs, device="cpu")
-    f, i, _, _ = tsh.hybrid_search(
+    tidx = tsh.ShardedIndex.from_embeddings(docs, cpu_mesh(1))
+    f, i, _, _ = tsh.sharded_hybrid_search(
         tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
         torch.from_numpy(q_emb), torch.from_numpy(weights),
-        k=5, c=10, n_docs=600, mode="rrf",
+        mesh=tidx.mesh, k=5, c=10, n_docs=600, mode="rrf",
     )
     assert calls == [] and tidx.docs.shape[0] == 600
     assert i.shape == (8, 5)
@@ -116,19 +123,23 @@ def test_small_shard_takes_the_matmul_path(monkeypatch):
 def test_rrf_zero_score_quirk_is_reproduced():
     """Reference fault kept on purpose (ROADMAP queue 3): on the scatter
     path, a query with no postings still fills its sparse top-C with
-    zero-score docs 0, 1, 2, ... and they earn RRF mass."""
-    mesh = make_mesh(1)
+    zero-score docs 0, 1, 2, ... and they earn RRF mass; at 2 and 4
+    shards each shard fills its own list from its base, and the merge
+    keeps shard 0's first, as in the reference at the same S."""
     docs, ids, w, q_emb, weights = _inputs(600)
-    jidx = jsh.ShardedIndex.from_embeddings(docs, mesh)
-    ref = jsh.sharded_hybrid_search(
-        jidx.docs, jnp.asarray(ids), jnp.asarray(w), jnp.asarray(q_emb),
-        jnp.asarray(weights), mesh=mesh, k=5, c=10, n_docs=600, mode="rrf",
-    )
-    tidx = tsh.ShardedIndex.from_embeddings(docs, device="cpu")
-    got = tsh.hybrid_search(
-        tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
-        torch.from_numpy(q_emb), torch.from_numpy(weights),
-        k=5, c=10, n_docs=600, mode="rrf",
-    )
-    np.testing.assert_array_equal(got[1].numpy()[3], np.asarray(ref[1])[3])
-    assert {0, 1, 2} <= set(got[1].numpy()[3].tolist())
+    for n_shards in (1, 2, 4):
+        mesh = make_mesh(n_shards)
+        jidx = jsh.ShardedIndex.from_embeddings(docs, mesh)
+        ref = jsh.sharded_hybrid_search(
+            jidx.docs, jnp.asarray(ids), jnp.asarray(w), jnp.asarray(q_emb),
+            jnp.asarray(weights), mesh=mesh, k=5, c=10, n_docs=600,
+            mode="rrf",
+        )
+        tidx = tsh.ShardedIndex.from_embeddings(docs, cpu_mesh(n_shards))
+        got = tsh.sharded_hybrid_search(
+            tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
+            torch.from_numpy(q_emb), torch.from_numpy(weights),
+            mesh=tidx.mesh, k=5, c=10, n_docs=600, mode="rrf",
+        )
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+        assert {0, 1, 2} <= set(got[1].numpy()[3].tolist())

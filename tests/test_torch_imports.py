@@ -42,7 +42,8 @@ print(" ".join(names))
 # port's own copies of the JAX package's host modules, and the build
 # path (training, evaluation, `index.builder`, the command line), the
 # evaluation path (the quality gate and the eval and kernel scripts), the
-# native tokenizer's binding, answer units and the two benches
+# native tokenizer's binding, answer units and the two benches, and the
+# mesh helpers with the sharded search
 NAMED_MODULES = [
     "legal_rag_tpu_torch.ops.pq",
     "legal_rag_tpu_torch.ops.pq_segmax",
@@ -88,6 +89,9 @@ NAMED_MODULES = [
     "legal_rag_tpu_torch.server.answer_units",
     "legal_rag_tpu_torch.scripts.bench_hybrid_scale",
     "legal_rag_tpu_torch.scripts.bench_http",
+    "legal_rag_tpu_torch.parallel",
+    "legal_rag_tpu_torch.parallel.mesh",
+    "legal_rag_tpu_torch.parallel.sharded",
 ]
 
 
@@ -202,6 +206,7 @@ def _entry_points():
     from legal_rag_tpu_torch.models.encoder import SentenceEncoder
     from legal_rag_tpu_torch.ops import pq
     from legal_rag_tpu_torch.ops.maxsim import MultiVectorIndex
+    from legal_rag_tpu_torch.parallel import mesh
     from legal_rag_tpu_torch.parallel.sharded import (
         ShardedIndex, ShardedMultiVectorIndex,
     )
@@ -244,6 +249,8 @@ def _entry_points():
         "evaluate_rerank": evaluation.evaluate_rerank,
         "compare_encoders": evaluation.compare_encoders,
         "_bm25_ranked_ids": evaluation._bm25_ranked_ids,
+        "make_mesh": mesh.make_mesh, "make_mesh_2d": mesh.make_mesh_2d,
+        "initialize_distributed": mesh.initialize_distributed,
     }
 
 
@@ -260,7 +267,7 @@ def _entry_points():
     "eval_ce_paraphrase.run", "eval_fusion_policy.run",
     "exp_ivf_recovery.run", "exp_ivf_recovery_recall.run",
     "exp_rm_sweep.run", "exp_twophase_full.run", "bench_hybrid_scale.run",
-    "bench_http.run",
+    "bench_http.run", "make_mesh", "make_mesh_2d", "initialize_distributed",
 ])
 def test_entry_point_defaults_to_the_card(name):
     """A missing card fails loudly; the work never moves to the CPU

@@ -322,7 +322,7 @@ def _engine_golden(engine, queries, q_tok=None):
     q_tok = tok if q_tok is None else torch.tensor(np.asarray(q_tok))
     mv = engine.mv_index
     s64 = golden_maxsim(q_tok.to(torch.bfloat16).float().numpy(), q_mask,
-                        mv.doc_tokens.float().numpy(),
+                        mv.doc_tokens.full().float().numpy(),
                         mv.doc_mask.numpy())
     return s64[:, :engine.store.n_docs], q_mask.sum(axis=1)
 
@@ -380,7 +380,7 @@ def test_engine_rerank_matches_exact_maxsim_over_its_candidates(
     s64, n_tok = _engine_golden(engine, queries)
     padded = queries + [""] * (8 - len(queries))
     _, _, q_emb = engine._encode_query_tokens(padded)
-    _, cand = _local_dense_topc(q_emb, engine.index.docs,
+    _, cand = _local_dense_topc(q_emb, engine.index.docs.full(), 0,
                                 engine.store.n_docs, 2 * k)
     for qi, row in enumerate(got):
         pool = [c for c in cand[qi].tolist() if 0 <= c < engine.store.n_docs]

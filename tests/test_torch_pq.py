@@ -27,6 +27,10 @@ from legal_rag_tpu_torch.ops import pq_segmax as k2
 
 D, M = 64, 8
 TOL = 1e-5
+# the reference's pallas_call takes the powers of two at its block sizes;
+# on the card the kernels also run the others (a sample of them)
+POW2_SEG_ROWS = (1, 2, 4, 8, 16, 32, 64)
+GPU_SEG_ROWS = POW2_SEG_ROWS + (3, 5, 12, 24, 33, 63)
 
 
 @pytest.fixture(scope="module")
@@ -248,7 +252,7 @@ def _jax_segmax(lut, codes, seg_rows):
     )(jnp.asarray(codes), lut_k, jnp.asarray(spread, jnp.float32)))
 
 
-@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+@pytest.mark.parametrize("seg_rows", POW2_SEG_ROWS)
 def test_pq_segmax_reference_matches_the_jax_kernel_at_every_seg_rows(
         clustered, jax_cb, seg_rows):
     """The plain K2 against the JAX package's Pallas kernel (interpret
@@ -266,7 +270,7 @@ def test_pq_segmax_reference_matches_the_jax_kernel_at_every_seg_rows(
     np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+@pytest.mark.parametrize("seg_rows", POW2_SEG_ROWS)
 def test_pq_topk_matches_jax_at_every_seg_rows(clustered, jax_cb, seg_rows):
     """``pq_topk(..., seg_rows=)`` for each segment the kernels take
     against the JAX pq_topk in interpret mode, with n_valid inside a
@@ -294,8 +298,8 @@ def test_pq_topk_at_seg_rows_the_kernels_do_not_take(clustered, jax_cb,
                                                       seg_rows):
     """The reference runs a seg_rows that is not a power of two where
     its block is a multiple of ``seg_rows * 128`` (more docs than one
-    block of 4,096); the port's plain version takes it too, the kernels
-    refuse it (ROADMAP queue 3)."""
+    block of 4,096); the port's plain version takes it too, and so do
+    the kernels on the card (test_pq_topk_at_odd_seg_rows_on_gpu)."""
     docs, q = clustered
     codes = jpq.encode_pq(np.tile(docs, (3, 1))[:5000], jax_cb)
     qr = jax_cb.rotate(q[:4])
@@ -625,7 +629,7 @@ def test_pq_segmax_shared_memory_plan_matches_the_kernel(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+@pytest.mark.parametrize("seg_rows", GPU_SEG_ROWS)
 @pytest.mark.parametrize("n_q", [1, 8, 9, 64, 65, 128])
 @pytest.mark.parametrize("m", [48, 304])
 def test_pq_segmax_every_seg_rows_on_gpu(cuda, seg_rows, n_q, m):
@@ -655,7 +659,7 @@ def test_pq_segmax_every_seg_rows_on_gpu(cuda, seg_rows, n_q, m):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seg_rows", k2.SUPPORTED_SEG_ROWS)
+@pytest.mark.parametrize("seg_rows", GPU_SEG_ROWS)
 def test_pq_topk_every_seg_rows_on_gpu(cuda, clustered, jax_cb, seg_rows):
     """pq_topk through K2 at every seg_rows against the same call on the
     CPU (the plain version), n_valid inside a segment."""
@@ -672,7 +676,7 @@ def test_pq_topk_every_seg_rows_on_gpu(cuda, clustered, jax_cb, seg_rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seg_rows", [0, 3, 12, 128])
+@pytest.mark.parametrize("seg_rows", [0, 65, 128])
 def test_pq_segmax_refuses_other_seg_rows_on_gpu(cuda, seg_rows):
     lut = torch.zeros(8, 96, 16, dtype=torch.bfloat16, device=cuda)
     codes = torch.zeros(1000, 48, dtype=torch.uint8, device=cuda)
@@ -685,6 +689,30 @@ def test_pq_segmax_lookup_shared_memory_matches_the_kernel(cuda):
     lib = k2.K2.library()
     for m in (k2.TC_MAX_M + 4, 1000, k2.MAX_M):
         for sr in k2.SUPPORTED_SEG_ROWS:
+            if k2.lookup_smem_bytes(m, 1, sr) > k2.MAX_SMEM:
+                continue
             qt = k2.lookup_tile(m, 64, sr)
             assert lib.pq_segmax_lookup_smem_bytes(m, qt, sr) == \
                 k2.lookup_smem_bytes(m, qt, sr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_rows", [3, 12])
+def test_pq_topk_at_odd_seg_rows_on_gpu(cuda, clustered, jax_cb, seg_rows):
+    """pq_topk at a seg_rows that is not a power of two runs K2 on the
+    card (no refusal, no plain fallback) over 5,000 codes (m=8, 4
+    queries, k=10) and equals the reference's top-10."""
+    docs, q = clustered
+    codes = jpq.encode_pq(np.tile(docs, (3, 1))[:5000], jax_cb)
+    qr = jax_cb.rotate(q[:4])
+    ref_s, ref_i = jpq.pq_topk(
+        jnp.asarray(qr), jnp.asarray(codes), jnp.asarray(jax_cb.codebooks),
+        10, seg_rows=seg_rows, interpret=True,
+    )
+    before = k2.K2.launches
+    got_s, got_i = tpq.pq_topk(
+        torch.from_numpy(qr).to(cuda), torch.from_numpy(codes).to(cuda),
+        torch.from_numpy(jax_cb.codebooks).to(cuda), 10, seg_rows=seg_rows,
+    )
+    assert k2.K2.launches == before + 1
+    assert_same_under_ties(got_s.cpu(), got_i.cpu(), ref_s, ref_i)

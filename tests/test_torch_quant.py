@@ -91,7 +91,7 @@ def test_int8_segment_map_is_exact(data):
     queries, docs = data
     idx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8", device="cpu")
     q_i8, _ = tdense.quantize_queries(torch.from_numpy(queries))
-    got = k1.segmax_rm_reference(q_i8, idx.docs, 4001)
+    got = k1.segmax_rm_reference(q_i8, idx.docs.full(), 4001)
     d64 = idx.docs.numpy().astype(np.int64)
     s = q_i8.numpy().astype(np.int64) @ d64.T
     s[:, 4001:] = -(2 ** 30)
@@ -110,8 +110,8 @@ def test_int8_twophase_matches_jax(data, n_valid):
         doc_scales=jnp.asarray(idx.doc_scales.numpy()),
     )
     got_s, got_i = dense_topk_twophase_rm(
-        torch.from_numpy(queries), idx.docs, k, n_valid=n_valid,
-        doc_scales=idx.doc_scales,
+        torch.from_numpy(queries), idx.docs.full(), k, n_valid=n_valid,
+        doc_scales=idx.doc_scales.full(),
     )
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
     np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s),
@@ -134,7 +134,7 @@ def test_int8_hybrid_both_dispatch_sides_match_jax(
     data, request, monkeypatch, force, mode
 ):
     """The small-N int8 matmul path and (forced) the two-phase K1-int8
-    path through hybrid_search, against sharded_hybrid_search."""
+    path through the port's sharded_hybrid_search, against JAX's."""
     if force:
         request.getfixturevalue("forced")
     calls = []
@@ -153,10 +153,10 @@ def test_int8_hybrid_both_dispatch_sides_match_jax(
         n_docs=n, mode=mode,
     )
     tidx = tsh.ShardedIndex.from_embeddings(docs, dtype="int8", device="cpu")
-    got = tsh.hybrid_search(
+    got = tsh.sharded_hybrid_search(
         tidx.docs, torch.from_numpy(ids), torch.from_numpy(w),
         torch.from_numpy(q_emb), torch.from_numpy(weights),
-        tidx.doc_scales, k=10, c=20, n_docs=n, mode=mode,
+        tidx.doc_scales, mesh=tidx.mesh, k=10, c=20, n_docs=n, mode=mode,
     )
     assert len(calls) == (1 if force else 0)
     f, i, sem, key = (x.numpy() for x in got)
@@ -301,9 +301,9 @@ def test_segmax_int8_kernel_bit_equal_on_gpu(cuda, n_q, n_valid):
     q_i8, _ = tdense.quantize_queries(
         torch.from_numpy(_unit(rng, n_q, 384)).to(cuda))
     before = k1.K1.int8_launches
-    got = k1.segmax_rm(q_i8, idx.docs, n_valid)
+    got = k1.segmax_rm(q_i8, idx.docs.full(), n_valid)
     torch.cuda.synchronize()
     assert k1.K1.int8_launches == before + 1
-    ref = k1.segmax_rm_reference(q_i8, idx.docs, n_valid)
+    ref = k1.segmax_rm_reference(q_i8, idx.docs.full(), n_valid)
     assert got.dtype == torch.int32
     assert torch.equal(got, ref)

@@ -134,6 +134,58 @@ def test_finetune_matches_jax(weights, chunks):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_finetune_matches_jax_at_shards(weights, chunks, n_shards):
+    """The data-parallel step at S shards (the port's one-process mesh of
+    S CPU entries) against JAX's ``make_train_step`` on ``make_mesh(S)``:
+    3 steps, the global batch of 30 rounded up to a multiple of S as the
+    reference does, losses within 1e-4 relative."""
+    from legal_rag_tpu_torch.parallel.mesh import Mesh
+
+    ref_enc, enc = _encoders(weights)
+    texts = [c["text"] for c in chunks]
+    kw = dict(steps=STEPS, batch_size=30, chunks=chunks,
+              token_maxsim_weight=0.5, augment_prob=0.5, seed=11)
+    ref, ref_losses = jft.finetune_encoder(ref_enc, texts,
+                                           make_mesh(n_shards), **kw)
+    got, losses = tft.finetune_encoder(
+        enc, texts, Mesh(["cpu"] * n_shards, ("shard",)), **kw)
+    np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL)
+    _assert_weights_close(got.params, _np_tree(ref.params),
+                          2 * 2e-5 * STEPS + 1e-6)
+
+
+def test_sharded_step_is_the_one_device_step():
+    """One step over a global batch of 8 at 1, 2 and 4 shards: the same
+    loss and weights within fp32 noise (the gradient of the global mean
+    loss, as JAX's shard_map step gives it)."""
+    from legal_rag_tpu_torch.models.minilm import MiniLM
+    from legal_rag_tpu_torch.models.train import adamw, make_train_step
+    from legal_rag_tpu_torch.parallel.mesh import Mesh
+
+    cfg = dataclasses.replace(CFG, vocab_size=300, hidden=32, layers=1,
+                              intermediate=64, max_len=16)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(5, 300, (2, 8, 16)))
+    mask = torch.from_numpy((rng.random((2, 8, 16)) < 0.8).astype(np.int64))
+    mask[:, :, 0] = 1
+    out = []
+    for n_shards in (1, 2, 4):
+        torch.manual_seed(0)
+        model = MiniLM(cfg, vocab_size=300, max_position=16, type_vocab_size=2)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), 1.0),
+                               maxsim_weight=0.5,
+                               mesh=Mesh(["cpu"] * n_shards, ("shard",)))
+        w0 = model.layers[0].intermediate.weight.detach().clone()
+        loss = step(ids[0], mask[0], ids[1], mask[1])
+        out.append((float(loss), w0 - model.layers[0].intermediate.weight))
+    for loss, grad in out[1:]:
+        assert loss == pytest.approx(out[0][0], rel=1e-6)
+        torch.testing.assert_close(grad, out[0][1], rtol=1e-4, atol=1e-6)
+    with pytest.raises(ValueError, match="does not divide"):
+        step(ids[0, :6], mask[0, :6], ids[1, :6], mask[1, :6])
+
+
 def test_finetune_token_term_changes_the_loss(weights, chunks):
     """The MaxSim term is on: the same draws without it give another
     loss (0.0 keeps the pooled-only recipe, as in the JAX package)."""
