@@ -165,7 +165,16 @@ Phases, one output line each:
    rerank equal to exact float64 MaxSim over each shard's own dense
    top-20); three fine-tune steps at S=2 within 1e-4 of S=1's losses;
    K2 at seg_rows 3 and 12 against its plain version and pq_topk there
-   against float64 ADC.
+   against float64 ADC;
+15. the headline bench (legal_rag_tpu_torch/bench.py, the counterpart
+   of bench.py) over phase 9's store: the batch-64 hybrid search's
+   device time by the slope over a CUDA graph (and the 8-wide single
+   query's), the eager sync and pipelined ms, the single-query p50/p90,
+   the dispatch floor, the CPU baseline and both encode rates, each
+   finite and positive; the batch's ids equal to the exact golden's
+   (recall@5 1.0 but for ties within TOPK_TOL), to cpu_baseline's and
+   to the captured graph's under the tie rule; its record on a line of
+   its own.
 
 Then a JSON line with each kernel's launches, error, times and bound
 (K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also on the
@@ -1674,9 +1683,9 @@ def phase_maxsim(store, legal, n_docs: int, device: str = "cuda"):
 
 def device_breakdown(torch, fn, top: int = 4):
     """One call of ``fn`` under torch.profiler: ``(wall ms, device busy
-    ms, the ``top`` kernels by device ms)``; busy is None where the
-    profiler records no device time. Both are read with the profiler
-    on, which adds host cost to every launch."""
+    ms, the ``top`` kernels by device ms, the kernels launched)``; busy
+    is None where the profiler records no device time. Both are read
+    with the profiler on, which adds host cost to every launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1687,17 +1696,18 @@ def device_breakdown(torch, fn, top: int = 4):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = []
+    kernels, launches = [], 0
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = ev.self_cuda_time_total
             kernels.append((ev.key[:48], us / 1e3))
+            launches += ev.count
     if not kernels:
-        return wall, None, []
+        return wall, None, [], 0
     kernels.sort(key=lambda kv: -kv[1])
-    return wall, sum(ms for _, ms in kernels), kernels[:top]
+    return wall, sum(ms for _, ms in kernels), kernels[:top], launches
 
 
 def phase_gather(store, expansions, device: str = "cuda", reps: int = 3):
@@ -3080,6 +3090,82 @@ def phase_shards(store, engine, recovery, seed: int) -> dict:
     return out
 
 
+def phase_headline(store_dir: str, device: str = "cuda") -> dict:
+    """The port's headline bench over ``store_dir`` on ``device``: its
+    record printed by ``bench.run``, its ids held against the exact
+    golden, the CPU baseline and the captured graph under the tie rule,
+    and every number finite and positive."""
+    import numpy as np
+    import torch
+
+    from legal_rag_tpu_torch import bench
+
+    t0 = time.time()
+    metrics, arrays = bench.run(
+        device=device, store_dir=store_dir,
+        log=lambda line: print(f"phase 15: {line}", flush=True))
+    out = {"metrics": metrics, "wall_s": time.time() - t0}
+    check(metrics["timing"] == ("eager" if device == "cpu" else
+                                "cuda_graph"), f"timing {metrics['timing']}")
+    for key in ("dev_qps", "cpu_qps", "batch_device_ms", "single_device_ms",
+                "sync_ms", "pipelined_ms", "single_p50_ms", "single_p90_ms",
+                "dispatch_floor_ms", "encode_texts_per_s",
+                "encode_texts_per_s_device"):
+        check(math.isfinite(metrics[key]) and metrics[key] > 0,
+              f"bench {key} {metrics[key]}")
+    dev_f, dev_i = (torch.from_numpy(np.asarray(x)) for x in arrays["device"])
+    check(dev_f.shape == dev_i.shape == (bench.Q_BATCH, bench.K),
+          f"bench output shape {tuple(dev_f.shape)}")
+    out["swaps"] = {}
+    for name in ("golden", "cpu", "graph"):
+        f, i = (torch.from_numpy(np.asarray(x)) for x in arrays[name])
+        out["swaps"][name] = same_topk(torch, dev_f, dev_i, f, i, TOPK_TOL,
+                                       f"bench vs {name}")
+    # the verbatim recall counts a doc traded with a tied one as a miss
+    check(metrics["recall_at_k"] == 1.0 or out["swaps"]["golden"] > 0,
+          f"bench recall@{bench.K} {metrics['recall_at_k']}")
+    if device != "cpu":
+        # what the device does in one search of 64, eager and captured
+        from legal_rag_tpu_torch.index.store import VectorStore
+
+        store = VectorStore.load(store_dir)
+        inputs = bench.bench_inputs(store, bench.sample_queries(
+            store, bench.Q_BATCH))[:4]
+        dev = torch.device(device)
+        _, (search, _) = bench.searchers(store, *inputs, dev)
+        replay, _ = bench.capture(search, dev)
+        out["profile"] = {"eager": device_breakdown(torch, search, top=5),
+                          "graph": device_breakdown(torch, replay, top=5)}
+    return out
+
+
+def print_headline(hd: dict) -> None:
+    m = hd["metrics"]
+    print(f"phase 15 ok: the headline bench over {m['source']} on "
+          f"{m['device']} in {hd['wall_s']:.1f} s: batch of 64 "
+          f"{m['batch_device_ms']:.4f} ms ({m['timing']} slope) = "
+          f"{m['dev_qps']:.1f} qps, {m['dev_qps'] / m['cpu_qps']:.2f}x the "
+          f"CPU baseline's {m['cpu_qps']:.1f} (numpy {m['blas']}, threads "
+          f"{m['blas_threads']}, {m['cpu_count']} cores); single query "
+          f"{m['single_device_ms']:.4f} ms ({m['timing']} slope), eager p50 "
+          f"{m['single_p50_ms']:.4f} / p90 {m['single_p90_ms']:.4f} ms; eager"
+          f" batch sync {m['sync_ms']:.4f}, pipelined {m['pipelined_ms']:.4f}"
+          f" ms; dispatch floor {m['dispatch_floor_ms']:.4f} ms; recall@5 "
+          f"{m['recall_at_k']} against the exact golden; ids == golden, "
+          f"cpu_baseline and the graph's under the tie rule (ranks traded: "
+          + ", ".join(f"{k} {v}" for k, v in hd["swaps"].items())
+          + f"); encode {m['encode_texts_per_s']:.1f} texts/s wall, "
+          f"{m['encode_texts_per_s_device']:.1f} device (slope, batch "
+          f"{m['encode_batch_shape']})", flush=True)
+    for mode, (wall, busy, top, launches) in hd.get("profile", {}).items():
+        print(f"phase 15 ok: one {mode} search of 64 under torch.profiler: "
+              f"wall {wall:.4f} ms, {launches} kernels, " + (
+                  "no device time recorded" if busy is None else
+                  f"device busy {busy:.4f} ms ({busy / wall:.1%}); largest "
+                  + "; ".join(f"{name} {ms:.4f} ms" for name, ms in top)),
+              flush=True)
+
+
 def print_shards(sh: dict) -> None:
     ms, g = sh["ms"], sh["gather_ms"]
     print(f"phase 14 ok: S=2 on one card over the fp32 store ({sh['n_local']}"
@@ -3396,7 +3482,7 @@ def main() -> int:
               f"3.35 TB/s)" for b, ms in mx["scan_ms"].items())
           + f" (the engine's block: {mx['block']}); phase wall "
           f"{mx['wall_s']:.1f} s", flush=True)
-    wall, busy, top = mx["profile"]
+    wall, busy, top, _ = mx["profile"]
     print(f"phase 8 ok: the scan at block {mx['block']} under torch.profiler: "
           f"wall {wall:.3f} ms, " + (
               "no device time recorded" if busy is None else
@@ -3458,6 +3544,10 @@ def main() -> int:
     del recovery
     torch.cuda.empty_cache()
     print_shards(sh)
+
+    # -- 15. the headline bench over phase 9's store
+    print_headline(phase_headline(b["store_dir"]))
+    torch.cuda.empty_cache()
 
     check("jax" not in sys.modules, "the run imported jax")
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"

@@ -193,6 +193,25 @@ def test_copies_rewrite_only_import_lines():
                 assert a.lstrip().startswith(("from ", "import ")), a
 
 
+@pytest.mark.parametrize("name", ["sample_queries", "cpu_baseline"])
+def test_bench_copy_is_verbatim(name):
+    """The headline bench's host functions are the repository root
+    ``bench.py``'s (the JAX package's harness), loaded from its file."""
+    import importlib.util
+    from pathlib import Path
+
+    from legal_rag_tpu_torch import bench
+
+    path = Path(__file__).resolve().parent.parent / "bench.py"
+    spec = importlib.util.spec_from_file_location("jax_bench_copy", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    assert inspect.getsource(getattr(bench, name)) == \
+        inspect.getsource(getattr(ref, name))
+    assert (bench.Q_BATCH, bench.K, bench.REPEATS) == \
+        (ref.Q_BATCH, ref.K, ref.REPEATS)
+
+
 @pytest.mark.parametrize("name", ["wordpiece.cpp", "unicode_tables.h",
                                   "gen_unicode_tables.py"])
 def test_native_tokenizer_source_is_a_verbatim_copy(name):

@@ -42,8 +42,8 @@ print(" ".join(names))
 # port's own copies of the JAX package's host modules, and the build
 # path (training, evaluation, `index.builder`, the command line), the
 # evaluation path (the quality gate and the eval and kernel scripts), the
-# native tokenizer's binding, answer units and the two benches, and the
-# mesh helpers with the sharded search
+# native tokenizer's binding, answer units and the two benches, the
+# mesh helpers with the sharded search, and the headline bench
 NAMED_MODULES = [
     "legal_rag_tpu_torch.ops.pq",
     "legal_rag_tpu_torch.ops.pq_segmax",
@@ -92,6 +92,7 @@ NAMED_MODULES = [
     "legal_rag_tpu_torch.parallel",
     "legal_rag_tpu_torch.parallel.mesh",
     "legal_rag_tpu_torch.parallel.sharded",
+    "legal_rag_tpu_torch.bench",
 ]
 
 
@@ -215,7 +216,7 @@ def _entry_points():
     from legal_rag_tpu_torch import evaluation
     from legal_rag_tpu_torch.index.builder import build_index
     from legal_rag_tpu_torch.scripts import bench_maxsim_scale
-    from legal_rag_tpu_torch import quality
+    from legal_rag_tpu_torch import bench, quality
     from legal_rag_tpu_torch.scripts import (
         bench_http, bench_hybrid_scale, bench_pq, diag_paraphrase,
         eval_ablation, eval_ce_paraphrase, eval_fusion_policy,
@@ -229,6 +230,7 @@ def _entry_points():
                exp_twophase_full)
     return {
         **{f"{m.__name__.rsplit('.', 1)[1]}.run": m.run for m in scripts},
+        "bench.run": bench.run,
         "run_quality_eval": quality.run_quality_eval,
         "run_retrieval_gate": quality.run_retrieval_gate,
         "RetrievalEngine": RetrievalEngine, "LegalEngine": LegalEngine,
@@ -268,6 +270,7 @@ def _entry_points():
     "exp_ivf_recovery.run", "exp_ivf_recovery_recall.run",
     "exp_rm_sweep.run", "exp_twophase_full.run", "bench_hybrid_scale.run",
     "bench_http.run", "make_mesh", "make_mesh_2d", "initialize_distributed",
+    "bench.run",
 ])
 def test_entry_point_defaults_to_the_card(name):
     """A missing card fails loudly; the work never moves to the CPU
