@@ -77,8 +77,8 @@ Phases, one output line each:
    K1-int8's, K2's and K4's launches over that run;
 3. a synthetic store made from --seed (default 1,000,000 docs) with
    its PQ and IVF artifacts, saved with the port's VectorStore.save
-   under build/ and loaded back, and its late-interaction slab (32
-   tokens a doc, float16, 24.6 GB at 1M docs) drawn on the card and
+   under build/ and loaded back, and its late-interaction slab (8
+   tokens a doc, float16, 6.1 GB at 1M docs) drawn on the card and
    written once in row chunks, memory-mapped;
 4. the port's LegalEngine on the card behind the HTTP server: three
    POST /api/v1/query requests (victim narrative, procedural, heading)
@@ -110,15 +110,15 @@ Phases, one output line each:
    8c the port's bench_maxsim_scale at its defaults (131,072 docs, 64
    queries, Td=32);
 9. the build path: a markdown corpus of the five laws (2,620 chunks,
-   ingest.synthetic), ``ingest`` and ``build --finetune-steps 300
+   ingest.synthetic), ``ingest`` and ``build --finetune-steps 100
    --finetune-token-weight 0.5 --pq-m 48 --ivf-cell-size 256
-   --rerank-steps 300 --multi-vector 32`` through the port's command
+   --rerank-steps 100 --multi-vector 32`` through the port's command
    line on the card (losses falling, the gate's verdict and alpha, the
    stage times), the store served by ``python -m legal_rag_tpu_torch
    serve`` in a process of its own, each of three titles' own chunks in
    its /api/v1/query context and its batch_search top 10; an untrained
    256-chunk build on the card equal to the CPU's (embeddings within
-   1e-5, BM25 and corpus_hash equal); the encode throughput over 65,536
+   1e-5, BM25 and corpus_hash equal); the encode throughput over 16,384
    chunks at batches 64 and 512 beside the fp32 FLOP bound, and the
    fine-tune and CE steps' ms.
 10. the evaluation path over phase 9's store: ``eval
@@ -126,16 +126,17 @@ Phases, one output line each:
    --include-pq --include-maxsim`` through ``python -m
    legal_rag_tpu_torch`` on the card, each in a process of its own with
    its report under build/smoke_eval (each exit code as its report's
-   gate says; a 300-step store fails the serving floors), their wall
+   gate says; a 100-step store fails the serving floors), their wall
    seconds, tables and provenance (platform gpu, the card's name);
    eval-retrieval's recall@10 and MRR a mode equal to a CPU run's
    within 2/n; K2's launches over the pq mode of ``evaluate_store`` in
    this process, and K2 at the eval's shape against its plain version;
    ``run_retrieval_gate`` at the untrained CI floors; diag_paraphrase,
-   eval_fusion_policy (bootstrap 200), exp_paraphrase_sparse and
-   eval_ce_paraphrase (200 queries a split) on the same store, the two
-   that rerank over a copy with a 20-step CE persisted on purpose (the
-   build's gate rejects a CE at this depth).
+   eval_fusion_policy (bootstrap 100), exp_paraphrase_sparse and
+   eval_ce_paraphrase (100 queries a split) on the same store, the two
+   that rerank over a copy with a 10-step CE persisted on purpose (the
+   build's gate persists a CE at this depth only when it does not lower
+   the held-out MRR).
 11. the C++ WordPiece tokenizer on the card's host: built by g++ from
    legal_rag_tpu_torch/native/ into build/, phase 9's store recording
    ``tokenizer_impl: native-cpp`` (anything else fails the run), its
@@ -174,13 +175,31 @@ Phases, one output line each:
    finite and positive; the batch's ids equal to the exact golden's
    (recall@5 1.0 but for ties within TOPK_TOL), to cpu_baseline's and
    to the captured graph's under the tie rule; its record on a line of
-   its own.
+   its own;
+16. the served programs as CUDA graphs (utils/graphs.py; the engines
+   of phases 4-8 already serve through them): over phase 3's store and
+   phase 9's, every tier (fp32, bf16, int8, flat PQ, PQ + IVF) in
+   weighted and RRF mode at 1, 5, 8 and 64 real queries (GRAPH_LIGHT's
+   words, without the corpus's head words) through a fresh
+   graph set whose every capture warms up under
+   set_sync_debug_mode("error"), the replay's rows equal to the eager
+   run's of the same engine bit for bit; K1, K1-int8 and K2 launched
+   inside replays at 1M docs; each graph set's graphs, capture seconds
+   and pool bytes; the fp32 engine's StageTimer stages and wall p50
+   over the PRIMARY queries (GRAPH_TIMED: 1 and 8 at 1M docs, also 64
+   at 2,620) in turns eager, graph, graph, eager; then 16b,
+   the serving path over phase 9's store with a CE, the server's warm-up
+   queries, the encoder's and the CE's replays equal to their eager
+   runs, bench_http's clients against an in-process server in turns,
+   and the graphs and pool bytes after the warm-up and after the load.
 
-Then a JSON line with each kernel's launches, error, times and bound
-(K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also on the
-maxsim-rerank path, bench_hybrid_scale's and the S=2 search; K2 also on
-the eval path's pq mode, at seg_rows 16, 3 and 12 and at S=4),
-and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
+Then each phase's seconds, a JSON line with each kernel's launches
+(``launches_in_replays`` of them inside CUDA-graph replays), error,
+times and bound (K4 at fp32 Q=8 and at bench_scale's bf16 Q=64; K1 also
+on the maxsim-rerank path, bench_hybrid_scale's and the S=2 search; K2
+also on the eval path's pq mode, at seg_rows 16, 3 and 12 and at S=4;
+K1, K1-int8 and K2 in phase 16's replays), and last ``{"ok": true,
+"device": {...}}``. Any failed check raises, so
 the exit code is non-zero and that last line is not printed. No module
 of the JAX package (``legal_rag_tpu``) may be loaded by the end.
 
@@ -256,16 +275,17 @@ EXPERIMENTS = ("exp_dense_roofline", "exp_twophase_stages",
                "exp_twophase_rowmajor", "exp_rm_stages",
                "exp_select_variants", "exp_member_topk")
 # the kernel scripts' reduced sizes in phase 2i (their defaults: 2^20 or
-# 1,000,000 docs; PERF.md has the full-size tables): 250,000 is not a
+# 1,000,000 docs; PERF.md has the full-size tables): 125,000 is not a
 # multiple of the 8,192-column padding unit, so exp_twophase_full's
 # unpadded and prepadded cases differ; the numpy mirror runs on the host
-SCRIPT_SIZES = {"exp_rm_sweep": 1 << 18, "exp_twophase_full": 250_000,
-                "bench_pq": 1 << 18, "exp_ivf_recovery": 1 << 18,
-                "exp_ivf_recovery_recall": 1 << 16}
+SCRIPT_SIZES = {"exp_rm_sweep": 1 << 17, "exp_twophase_full": 125_000,
+                "bench_pq": 1 << 17, "exp_ivf_recovery": 1 << 17,
+                "exp_ivf_recovery_recall": 1 << 15}
 # the card's pq dispatch against the numpy mirror's candidates: fp32
 # table sums in another order may trade a near-tied candidate at the cut
 SCRIPT_OVERLAP = 0.99
-MV_TD = 32          # the token slab's budget (`build --multi-vector 32`)
+MV_TD = 8           # the token slab's budget (`build --multi-vector 8`;
+                    # 6.1 GB at 1M docs, the smoke's time cut from 32)
 MAXSIM_TOL = 1e-5   # MaxSim vs float64: per real query token (one fp32
                     # max of a 384-term sum of exact bf16 products)
 MAXSIM_REPS = 3     # timed batch_search calls a MaxSim mode
@@ -1253,11 +1273,14 @@ def reset_counts() -> None:
     from legal_rag_tpu_torch.ops.segmax_rm import K1
     from legal_rag_tpu_torch.ops.stream_probe import X1
 
-    K1.launches = K1.int8_launches = K1.tensor_core_launches = K2.launches = 0
-    K3.launches = K4.launches = P.launches = X1.launches = X2.launches = 0
+    for kernel in (K1, K2, K3, K4, P, X1, X2):
+        kernel.reset_counts()
 
 
 def read_counts() -> dict:
+    """Each kernel's launches since reset_counts: by its wrapper, plus
+    those inside CUDA-graph replays (the served path replays captured
+    programs, utils/graphs.py); the replays' share also on its own."""
     from legal_rag_tpu_torch.ops.argmax_probe import P
     from legal_rag_tpu_torch.ops.fused_topk import K3
     from legal_rag_tpu_torch.ops.mm_rowmax import X2
@@ -1266,10 +1289,17 @@ def read_counts() -> dict:
     from legal_rag_tpu_torch.ops.segmax_rm import K1
     from legal_rag_tpu_torch.ops.stream_probe import X1
 
-    return {"K1": K1.launches, "K1-int8": K1.int8_launches,
-            "K1 tensor cores": K1.tensor_core_launches,
-            "K2": K2.launches, "K3": K3.launches, "K4": K4.launches,
-            "P": P.launches, "X1": X1.launches, "X2": X2.launches}
+    out = {}
+    for name, kernel, counter in (
+            ("K1", K1, "launches"), ("K1-int8", K1, "int8_launches"),
+            ("K1 tensor cores", K1, "tensor_core_launches"),
+            ("K2", K2, "launches"), ("K3", K3, "launches"),
+            ("K4", K4, "launches"), ("P", P, "launches"),
+            ("X1", X1, "launches"), ("X2", X2, "launches")):
+        replays = kernel.in_replays[counter]
+        out[name] = getattr(kernel, counter) + replays
+        out[f"{name} in replays"] = replays
+    return out
 
 
 def tier_config(dtype: str, **dense):
@@ -1769,11 +1799,11 @@ def phase_gather(store, expansions, device: str = "cuda", reps: int = 3):
 
 
 BUILD_CHUNKS = 2620  # the serving corpus's chunk count
-BUILD_ARGS = ("--finetune-steps", "300", "--finetune-token-weight", "0.5",
+BUILD_ARGS = ("--finetune-steps", "100", "--finetune-token-weight", "0.5",
               "--pq-m", "48", "--ivf-cell-size", "256", "--rerank-steps",
-              "300", "--multi-vector", "32")     # flag, value pairs
+              "100", "--multi-vector", "32")     # flag, value pairs
 BUILD_SUBSET = 256      # chunks of the untrained card-vs-CPU build
-ENCODE_DOCS = 65_536    # the encode throughput's corpus
+ENCODE_DOCS = 16_384    # the encode throughput's corpus
 ENCODE_BATCHES = (64, 512)
 EMB_TOL = 1e-5          # card vs CPU embeddings: fp32 sums in another order
 
@@ -2129,9 +2159,9 @@ CI_FLOORS = {   # tests/test_quality_cli.py's untrained floors
     "structure": {"mode": "rrf", "recall@10": 0.88},
     "sibling": {"mode": "rrf", "recall@10": 0.40},
 }
-EVAL_CE_STEPS = 20      # a CE persisted on purpose for eval_ce_paraphrase
-EVAL_SCRIPT_PAIRS = 200  # queries a split for the sparse and CE scripts
-EVAL_BOOTSTRAP = 200
+EVAL_CE_STEPS = 10      # a CE persisted on purpose for eval_ce_paraphrase
+EVAL_SCRIPT_PAIRS = 100  # queries a split for the sparse and CE scripts
+EVAL_BOOTSTRAP = 100
 
 
 def _eval_command(cmd, flags, store_dir, report, device):
@@ -3218,6 +3248,230 @@ def print_shards(sh: dict) -> None:
 
 
 
+GRAPH_N_REAL = (1, 5, 8, 64)   # real queries: buckets 8 (three fills) and 64
+# the PRIMARY queries' words without the corpus's head words (whose
+# postings run to ~10^6 at 1M docs): the 40 bit-for-bit cases a store
+# then take seconds of host gather, not minutes
+GRAPH_LIGHT = ("punishment robbery", "procedure file fir",
+               "robbed gunpoint procedure rights victim")
+# batches timed eager against graph with the PRIMARY queries, and the
+# timed search_batch calls a turn, a store (the 1M store's victim
+# queries gather 0.2 s of postings each on the host)
+GRAPH_TIMED = {1_000_000: ((1, 8), 5), 2620: ((1, 8, 64), 10)}
+# the in-process HTTP load: (clients, requests a client)
+GRAPH_LOAD = ((1, 16), (16, 4))
+
+
+def graph_queries(n: int, texts=PRIMARY):
+    return [f"{texts[i % len(texts)]} (graph {i})" for i in range(n)]
+
+
+def graph_rows(engine, queries, mode: str, use_graphs: bool):
+    """search_batch's rows as (doc_id, score, semantic, keyword), through
+    the engine's graphs or op by op."""
+    engine.graphs.enabled = use_graphs
+    try:
+        return [[(r.doc_id, r.score, r.semantic, r.keyword) for r in row]
+                for row in engine.search_batch(queries, k=10, mode=mode)]
+    finally:
+        engine.graphs.enabled = True
+
+
+def fresh_graphs(engine):
+    """A new graph set for ``engine`` and its encoder, whose every capture
+    warms up under set_sync_debug_mode("error")."""
+    from legal_rag_tpu_torch.utils.graphs import GraphSet
+
+    graphs = GraphSet(engine.device, check_syncs=True)
+    engine.graphs = engine.encoder.graphs = graphs
+    return graphs
+
+
+def stage_turns(engine, n: int, reps: int) -> list:
+    """search_batch of ``n`` PRIMARY queries in turns eager, graph,
+    graph, eager (``reps`` calls each after one untimed): the
+    StageTimer's mean ms a stage and the wall p50 a call, per turn."""
+    import statistics
+
+    from legal_rag_tpu_torch.utils.timing import StageTimer
+
+    queries, out = graph_queries(n), []
+    for use in (False, True, True, False):
+        graph_rows(engine, queries, "rrf", use)
+        engine.timer, walls = StageTimer(), []
+        engine.graphs.enabled = use
+        try:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                engine.search_batch(queries, k=10, mode="rrf")
+                walls.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            engine.graphs.enabled = True
+        snap = engine.timer.snapshot()
+        out.append(("graph" if use else "eager", {
+            "wall_p50_ms": statistics.median(walls),
+            **{f"{k}_ms": v["mean_ms"] for k, v in snap.items()}}))
+    return out
+
+
+def phase_graphs(stores: dict) -> dict:
+    """Phase 16: each store's tiers served through their CUDA graphs.
+    ``stores``: {label: {tier: RetrievalEngine}}. Every tier, both modes
+    and each of GRAPH_N_REAL real queries: the replay's rows equal the
+    eager run's of the same engine bit for bit, each capture's warm-up
+    under set_sync_debug_mode("error"); the launches inside replays; the
+    fp32 engine's stages eager against graph."""
+    import torch
+
+    out = {}
+    for label, engines in stores.items():
+        t0 = time.time()
+        reset_counts()
+        sets, cases = {}, 0
+        for tier, engine in engines.items():
+            sets[tier] = fresh_graphs(engine)
+            for mode in ("weighted", "rrf"):
+                for n in GRAPH_N_REAL:
+                    queries = graph_queries(n, GRAPH_LIGHT)
+                    graph = graph_rows(engine, queries, mode, True)
+                    eager = graph_rows(engine, queries, mode, False)
+                    check(len(graph) == n and all(graph),
+                          f"{label} {tier} {mode} n={n}: empty rows")
+                    check(graph == eager, f"{label} {tier} {mode} n={n}: "
+                          "the graph's rows differ from the eager run's")
+                    cases += 1
+        torch.cuda.synchronize()
+        counts = read_counts()
+        stats = {tier: g.stats() for tier, g in sets.items()}
+        fp32 = engines["float32"]
+        timed, reps = GRAPH_TIMED.get(fp32.store.n_docs, ((1, 8), 5))
+        turns = {n: stage_turns(fp32, n, reps) for n in timed}
+        out[label] = {"cases": cases, "counts": counts, "stats": stats,
+                      "turns": turns, "reps": reps,
+                      "wall_s": time.time() - t0,
+                      "n_docs": fp32.store.n_docs}
+    return out
+
+
+def phase_graph_http(store_dir: str, seed: int) -> dict:
+    """Phase 16b: the serving path over phase 9's store, the query
+    encoder and the CE (a seeded head on the encoder's trunk where the
+    build's gate persisted none) through one engine's graphs: the
+    server's warm-up queries, then bench_http's clients against an
+    in-process server in turns eager, graph, graph, eager; the encoder's
+    and the CE's replays equal to their eager runs bit for bit; the
+    graphs and pool bytes after the warm-up and after the load."""
+    import numpy as np
+
+    from legal_rag_tpu_torch.cli import WARMUP_QUERIES, BackgroundServer
+    from legal_rag_tpu_torch.index.store import VectorStore
+    from legal_rag_tpu_torch.retrieval.facade import LegalEngine
+    from legal_rag_tpu_torch.scripts import bench_http
+
+    store = VectorStore.load(store_dir)
+    if store.ce_params is None:
+        rng = np.random.default_rng(seed)
+        store.ce_params = {"trunk": store.encoder_params, "head": {
+            "w": (0.02 * rng.standard_normal(store.dim)).astype(np.float32),
+            "b": np.zeros((), np.float32)}}
+    legal = LegalEngine(store=store, use_llm=False, device="cuda")
+    engine, ce = legal.engine, legal.orchestrator.reranker
+    check(ce is not None and ce.graphs is engine.graphs is
+          engine.encoder.graphs, "the CE does not share the engine's graphs")
+    graphs = engine.graphs
+    graphs.check_syncs = True
+    t0 = time.time()
+    for q in WARMUP_QUERIES:
+        legal.query(q)
+    out = {"warmup_s": time.time() - t0, "after_warmup": graphs.stats()}
+    texts = list(bench_http.QUERIES)
+    docs = [c["text"] for c in store.chunks[:len(texts)]]
+    got = (engine.encoder.encode(texts), ce.score_pairs(texts, docs))
+    graphs.enabled = False
+    try:
+        want = (engine.encoder.encode(texts), ce.score_pairs(texts, docs))
+    finally:
+        graphs.enabled = True
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "the encoder's or the CE's replay differs from its eager run")
+    kinds = {key[0] for key in graphs.programs}
+    check({"search", "encode", "cross_encode"} <= kinds,
+          f"programs captured: {sorted(kinds)}")
+    graphs.check_syncs = False     # process-wide: not under server threads
+    engine.enable_request_coalescing()
+    server = BackgroundServer(legal)
+    rows = []
+    try:
+        for use in (False, True, True, False):
+            graphs.enabled = use
+            bench_http.run_level(server.port, 1, len(bench_http.QUERIES))
+            for clients, n in GRAPH_LOAD:
+                row = bench_http.run_level(server.port, clients, n)
+                check(row["n_errors"] == 0, f"bench_http errors: {row}")
+                rows.append(("graph" if use else "eager", row))
+    finally:
+        graphs.enabled = True
+        server.stop()
+    out.update(rows=rows, after_load=graphs.stats(),
+               wall_s=time.time() - t0)
+    return out
+
+
+def print_graphs(gr: dict, http: dict) -> None:
+    for label, g in gr.items():
+        st = g["stats"]
+        print(f"phase 16 ok: {label} ({g['n_docs']} docs): {g['cases']} "
+              f"cases (tiers {', '.join(st)}; weighted and rrf; "
+              f"{', '.join(map(str, GRAPH_N_REAL))} real queries) replayed "
+              f"== eager bit for bit, every warm-up under "
+              f"set_sync_debug_mode('error'); launches in replays: "
+              + ", ".join(f"{k} {g['counts'][k + ' in replays']}"
+                          for k in ("K1", "K1-int8", "K2"))
+              + " (direct: " + ", ".join(
+                  f"{k} {g['counts'][k] - g['counts'][k + ' in replays']}"
+                  for k in ("K1", "K1-int8", "K2"))
+              + "); graphs a tier, capture s (mean, max), pool MB, static "
+              "inputs MB: " + "; ".join(
+                  f"{tier} {s['graphs']}, {sum(s['capture_s']) / len(s['capture_s']):.4f} / "
+                  f"{max(s['capture_s']):.4f}, {s['pool_bytes'] / 2**20:.1f}, "
+                  f"{s['input_bytes'] / 2**20:.1f}" for tier, s in st.items())
+              + f"; {g['wall_s']:.1f} s", flush=True)
+        print(f"phase 16 ok: {label} fp32 rrf, PRIMARY queries, eager "
+              f"against graph, mean stage ms and wall p50 ms over "
+              f"{g['reps']} calls a turn: "
+              + "; ".join(f"n={n}: " + " | ".join(
+                  f"{turn} " + ", ".join(f"{k[:-3]} {v:.4f}"
+                                         for k, v in t.items())
+                  for turn, t in turns)
+                  for n, turns in g["turns"].items()), flush=True)
+    a, b = http["after_warmup"], http["after_load"]
+    print(f"phase 16b ok: the served path over phase 9's store through one "
+          f"graph set (search, encoder, CE); encoder and CE replays == eager "
+          f"bit for bit; warm-up {http['warmup_s']:.2f} s captured "
+          f"{a['graphs']} graphs (capture s {sum(a['capture_s']):.3f}, pool "
+          f"{a['pool_bytes'] / 2**20:.1f} MB); after the load "
+          f"{b['graphs']} graphs ({b['replays']} replays, pool "
+          f"{b['pool_bytes'] / 2**20:.1f} MB, static inputs "
+          f"{b['input_bytes'] / 2**20:.1f} MB); bench_http clients in "
+          f"process, turns eager/graph/graph/eager: " + "; ".join(
+              f"{turn} c={r['concurrency']} p50 {r['p50_ms']} ms p99 "
+              f"{r['p99_ms']} ms qps {r['qps']}" for turn, r in http["rows"])
+          + f"; {http['wall_s']:.1f} s", flush=True)
+
+
+class Laps:
+    """Seconds of each phase: ``mark(label)`` ends the running phase and
+    starts ``label`` (None: the last one ends)."""
+
+    def __init__(self, first: str) -> None:
+        self.done, self._name, self._t0 = [], first, time.time()
+
+    def mark(self, name) -> None:
+        now = time.time()
+        self.done.append((self._name, now - self._t0))
+        self._name, self._t0 = name, now
+
+
 def build_kernels() -> dict:
     """Build every kernel at once (one nvcc each); returns, per kernel,
     its source, build seconds and ptxas registers per instantiation."""
@@ -3260,6 +3514,7 @@ def main() -> int:
     sys.path.insert(0, REPO_ROOT)
 
     t_start = time.time()
+    laps = Laps("1")
     kind = torch.cuda.get_device_name(0)
 
     # -- 1. card and kernel build
@@ -3291,6 +3546,7 @@ def main() -> int:
           + ("not recorded by torch.profiler" if device_us is None
              else f"{device_us:.3f} us (torch.profiler)"), flush=True)
 
+    laps.mark("2")
     # -- 2. K1 against its plain version at the main path's shapes
     max_err, times, docs32 = phase_kernel(torch, args.seed)
     parts = "; ".join(
@@ -3306,6 +3562,7 @@ def main() -> int:
           f"two-phase top-20 == float64 under the tie rule at each; {parts}",
           flush=True)
 
+    laps.mark("2b")
     # -- 2b. K1-int8 against its plain version on the same docs
     err_i8, times_i8 = phase_kernel_int8(torch, docs32, args.seed)
     del docs32
@@ -3317,6 +3574,7 @@ def main() -> int:
               f"ms, two-phase top-32 {t['twophase_ms']:.4f} ms"
               for qp, t in times_i8.items()), flush=True)
 
+    laps.mark("2c/2d")
     # -- 2c/2d. K2 against its plain version, and the recovery workload
     (err_pq, times_pq, recall, (t_data, t_train), times_w, times_sr,
      recovery) = phase_pq(torch, args.seed)
@@ -3348,6 +3606,7 @@ def main() -> int:
               f"EVAL_IVF_RECOVERY.json {RECOVERY_REPO[name]})"
               for name in recall), flush=True)
 
+    laps.mark("2e/2f/2g")
     # -- 2e/2f/2g. the column-major kernels K4 and K3, their entry
     # points, and bench_scale
     docs_cm = colmajor_docs(torch, args.seed)
@@ -3400,6 +3659,7 @@ def main() -> int:
           + f"; K1 launched {bench_counts['K1']}x, K4 "
           f"{bench_counts['K4']}x", flush=True)
 
+    laps.mark("2h")
     # -- 2h. the timing experiments: X1 and X2, K4 at seg_rows 32, the
     # six scripts
     x1_t, x2_t, cublas_ms, err_k4_32 = phase_probes(torch, args.seed)
@@ -3429,23 +3689,28 @@ def main() -> int:
           f"{exp_counts['K1']}x, K4 {exp_counts['K4']}x, X1 "
           f"{exp_counts['X1']}x, X2 {exp_counts['X2']}x", flush=True)
 
+    laps.mark("2i")
     # -- 2i. the kernel scripts of the evaluation slice at reduced size
     ks = phase_kernel_scripts(torch)
     torch.cuda.empty_cache()
     print_kernel_scripts(ks)
 
+    laps.mark("3")
     # -- 3. synthetic store at serving scale, with PQ and IVF artifacts
     store, expansions = phase_store(args.docs, args.seed, "cuda")
     check(store.pq_codes is not None and store.ivf_centroids is not None,
           "store lacks its PQ/IVF artifacts")
 
+    laps.mark("4")
     # -- 4. the port's main path: HTTP server over the engine on the card
     legal, counts, served = phase_serve(store, args.docs, "cuda")
     engine = legal.engine
 
+    laps.mark("5")
     # -- 5. the same searches through a second engine on the CPU
     phase_compare(store, engine, expansions, served)
 
+    laps.mark("6")
     # -- 6. the PQ + IVF and int8 engines over HTTP (each refusing
     # maxsim-rerank), then the int8 and flat PQ tiers
     ivf_legal, ivf_counts, _ = phase_serve(store, args.docs, "cuda",
@@ -3458,9 +3723,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tier_engines, tier_counts = phase_tiers(store, args.docs)
 
+    laps.mark("7")
     # -- 7. each quantized tier on the card against the CPU
     phase_compare_tiers(store, tier_engines, ivf_engine, engine, expansions)
 
+    laps.mark("8")
     # -- 8. the late-interaction modes behind the HTTP server on the fp32
     # engine, the device postings gather, bench_maxsim_scale
     mx = phase_maxsim(store, legal, args.docs)
@@ -3513,30 +3780,36 @@ def main() -> int:
           f"{bms['rerank_ms']:.3f} ms, top-1 agreement {bms['top1']}, top-10 "
           f"overlap {bms['overlap']}", flush=True)
 
+    laps.mark("9")
     # -- 9. the build path: ingest, build (fine-tune, PQ + IVF, token
     # slab, CE and its gate), serve, the card against the CPU
     b = phase_build(args.seed)
     torch.cuda.empty_cache()
     print_build(b)
 
+    laps.mark("10")
     # -- 10. the evaluation path over phase 9's store: the eval commands
     # on the card and the CPU, K2 on the pq mode, the eval scripts
     ev = phase_eval(b["store_dir"])
     torch.cuda.empty_cache()
     print_eval(ev)
 
+    laps.mark("11")
     # -- 11. the native tokenizer on the card's host, over phase 9's store
     nat = phase_native(b)
     print_native(nat, b)
 
+    laps.mark("12")
     # -- 12. the benches: bench_hybrid_scale at 1M docs (K1), bench_http
     bn = phase_benches(b)
     torch.cuda.empty_cache()
     print_benches(bn)
 
+    laps.mark("13")
     # -- 13. the deployment entry points over phase 9's store
     print_entry_points(phase_entry_points(b))
 
+    laps.mark("14")
     # -- 14. multi-GPU sharding on the one card: S=2 and a 2x2 mesh over
     # the fp32 store, the gloo and NCCL process groups, PQ and IVF at S=4,
     # both MaxSim modes and the fine-tune at S=2, K2 at odd seg_rows
@@ -3545,9 +3818,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     print_shards(sh)
 
+    laps.mark("15")
     # -- 15. the headline bench over phase 9's store
     print_headline(phase_headline(b["store_dir"]))
     torch.cuda.empty_cache()
+
+    laps.mark("16")
+    # -- 16. the served programs as CUDA graphs, every tier over phase 3's
+    # store and phase 9's, eager against graph; then the serving path
+    # over phase 9's store (encoder and CE too) under bench_http's clients
+    from legal_rag_tpu_torch.index.store import VectorStore
+    from legal_rag_tpu_torch.retrieval.engine import RetrievalEngine
+
+    small = VectorStore.load(b["store_dir"])
+    gr = phase_graphs({
+        "phase 3's store": {
+            "float32": engine,
+            "bfloat16": RetrievalEngine(store, config=tier_config("bfloat16")),
+            "int8": tier_engines["int8"], "pq": tier_engines["pq"],
+            "pq + IVF": ivf_engine},
+        "phase 9's store": {
+            tier: RetrievalEngine(small, config=cfg) for tier, cfg in (
+                ("float32", tier_config("float32")),
+                ("bfloat16", tier_config("bfloat16")),
+                ("int8", tier_config("int8")),
+                ("pq", tier_config("pq", use_ivf=False, pq_oversample=64)),
+                ("pq + IVF", pq_ivf_config()))},
+    })
+    gr_http = phase_graph_http(b["store_dir"], args.seed)
+    print_graphs(gr, gr_http)
+    torch.cuda.empty_cache()
+    laps.mark(None)
+    print("phase seconds: " + ", ".join(f"{name} {secs:.1f}"
+                                        for name, secs in laps.done),
+          flush=True)
 
     check("jax" not in sys.modules, "the run imported jax")
     jax_pkg = sorted(m for m in sys.modules if m == "legal_rag_tpu"
@@ -3562,11 +3866,16 @@ def main() -> int:
     # K4 at bench_scale's batch: bf16, 64 queries
     k4_64 = times_k4[("bf16", 64, 8)]
     n_rows = engine.index.docs.shape[0]     # the maxsim-rerank dense stage
+    k1_bound = bound(N_ROWS * DIM * 4 + 8 * DIM * 4 + 8 * N_ROWS // 8 * 4,
+                     2 * 8 * N_ROWS * DIM, "fp32")
+    i8_bound = bound(N_ROWS * DIM + 8 * DIM + 8 * N_ROWS // 8 * 4,
+                     2 * 8 * N_ROWS * DIM, "int8")
+    k2_bound = bound(N_PQ * PQ_M + 8 * 2 * PQ_M * 16 * 2 + 8 * N_PQ // 8 * 4,
+                     8 * N_PQ * 2 * PQ_M, "fp32")
     rows = [
         ("segmax_rm (K1)", "segmax_rm.cu", "legal_rag_tpu/ops/dense.py:495",
-         counts["K1"], max_err, k1_t["k1_ms"], k1_t["plain_ms"],
-         bound(N_ROWS * DIM * 4 + 8 * DIM * 4 + 8 * N_ROWS // 8 * 4,
-               2 * 8 * N_ROWS * DIM, "fp32"), None),
+         counts["K1"], max_err, k1_t["k1_ms"], k1_t["plain_ms"], k1_bound,
+         None),
         # fp32 products as 3xTF32 computes them: three TF32 products each
         ("segmax_rm tensor cores (K1, Q=64)", "segmax_rm.cu",
          "legal_rag_tpu/ops/dense.py:495", served[64][1]["K1 tensor cores"],
@@ -3593,14 +3902,10 @@ def main() -> int:
                2 * 64 * N_ROWS * DIM, "bf16"), None),
         ("segmax_rm int8 (K1-int8)", "segmax_rm.cu",
          "legal_rag_tpu/ops/dense.py:515", tier_counts["int8"]["K1-int8"],
-         err_i8, k1_i8_t["k1_ms"], k1_i8_t["plain_ms"],
-         bound(N_ROWS * DIM + 8 * DIM + 8 * N_ROWS // 8 * 4,
-               2 * 8 * N_ROWS * DIM, "int8"), None),
+         err_i8, k1_i8_t["k1_ms"], k1_i8_t["plain_ms"], i8_bound, None),
         ("pq_segmax (K2)", "pq_segmax.cu", "legal_rag_tpu/ops/pq.py:257",
          ivf_counts["K2"] + tier_counts["pq"]["K2"], err_pq, k2_t["k2_ms"],
-         k2_t["plain_ms"],
-         bound(N_PQ * PQ_M + 8 * 2 * PQ_M * 16 * 2 + 8 * N_PQ // 8 * 4,
-               8 * N_PQ * 2 * PQ_M, "fp32"), None),
+         k2_t["plain_ms"], k2_bound, None),
         # bench_pq's seg_rows-16 rows (phase 2i), timed at Q=64 over the
         # 1M codes of phase 2c
         ("pq_segmax (K2, seg_rows 16)", "pq_segmax.cu",
@@ -3652,14 +3957,47 @@ def main() -> int:
          exp_counts["X2"], x2_t[8192]["err"], x2_t[8192]["ms"],
          x2_t[8192]["plain_ms"], x2_t[8192]["bound"], None),
     ]
+    # phase 16: the kernels inside the served graphs' replays over phase
+    # 3's store (fp32 and bf16 tiers: K1; int8: K1-int8; pq, IVF: K2)
+    big = gr["phase 3's store"]["counts"]
+    rows += [
+        ("segmax_rm (K1, graph replays)", "segmax_rm.cu",
+         "legal_rag_tpu/ops/dense.py:495", big["K1"], max_err,
+         k1_t["k1_ms"], k1_t["plain_ms"], k1_bound, None),
+        ("segmax_rm int8 (K1-int8, graph replays)", "segmax_rm.cu",
+         "legal_rag_tpu/ops/dense.py:515", big["K1-int8"], err_i8,
+         k1_i8_t["k1_ms"], k1_i8_t["plain_ms"], i8_bound, None),
+        ("pq_segmax (K2, graph replays)", "pq_segmax.cu",
+         "legal_rag_tpu/ops/pq.py:257", big["K2"], err_pq, k2_t["k2_ms"],
+         k2_t["plain_ms"], k2_bound, None),
+    ]
+    # of each row's launches, those made inside CUDA-graph replays
+    replayed = {
+        "segmax_rm (K1)": counts["K1 in replays"],
+        "segmax_rm tensor cores (K1, Q=64)":
+            served[64][1]["K1 tensor cores in replays"],
+        "segmax_rm tensor cores (K1, Q=128)":
+            served[68][1]["K1 tensor cores in replays"],
+        "segmax_rm int8 (K1-int8)": tier_counts["int8"]["K1-int8 in replays"],
+        "pq_segmax (K2)": (ivf_counts["K2 in replays"]
+                           + tier_counts["pq"]["K2 in replays"]),
+        "pq_segmax (K2, eval pq mode)": ev["counts"]["K2 in replays"],
+        "segmax_rm (K1, graph replays)": big["K1 in replays"],
+        "segmax_rm int8 (K1-int8, graph replays)": big["K1-int8 in replays"],
+        "pq_segmax (K2, graph replays)": big["K2 in replays"],
+    }
     for name, _, _, launches, *_ in rows:
         check(launches > 0, f"{name} was not launched on its path")
+    for name in ("segmax_rm (K1, graph replays)",
+                 "segmax_rm int8 (K1-int8, graph replays)",
+                 "pq_segmax (K2, graph replays)"):
+        check(replayed[name] > 0, f"{name}: no launch inside a replay")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"legal_rag_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": launches, "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-         "library_ms": library_ms}
+         "launches": launches, "launches_in_replays": replayed.get(name, 0),
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
         for name, src, replaces, launches, err, ms, plain_ms, bnd, library_ms
         in rows
     ]}))

@@ -70,7 +70,8 @@ def serving_config(dense_dtype: Optional[str] = None):
 
 
 def load_engine(store_dir: str, device: str, dense_dtype: Optional[str] = None):
-    """The serving engine, warmed up, with request coalescing unless
+    """The serving engine, warmed up (its CUDA graphs captured for the
+    buckets the warm-up queries touch), with request coalescing unless
     ``LEGAL_RAG_NO_COALESCE=1``."""
     from legal_rag_tpu_torch.server.source_fetcher import set_default_catalog
     from legal_rag_tpu_torch.retrieval.facade import LegalEngine
@@ -83,6 +84,10 @@ def load_engine(store_dir: str, device: str, dense_dtype: Optional[str] = None):
     for q in WARMUP_QUERIES:
         engine.query(q)
     logger.info("warmup complete in %.1fs", time.time() - t0)
+    if engine.engine.graphs is not None:
+        # the buckets the warmup touched are captured, as the JAX
+        # server's warmup compiles them
+        logger.info("%s", engine.engine.graphs.summary())
     if os.environ.get("LEGAL_RAG_NO_COALESCE", "") != "1":
         engine.engine.enable_request_coalescing()
     return engine

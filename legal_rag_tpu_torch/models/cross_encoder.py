@@ -32,6 +32,7 @@ from legal_rag_tpu_torch.models.encoder import SentenceEncoder
 from legal_rag_tpu_torch.models.minilm import MiniLM, minilm_hidden_states
 from legal_rag_tpu_torch.models.train import adamw
 from legal_rag_tpu_torch.models.wordpiece import pad_and_bucket
+from legal_rag_tpu_torch.utils.graphs import run_program
 
 
 def cross_encode_scores(
@@ -68,6 +69,9 @@ class CrossEncoder:
         self.cfg = encoder.cfg
         self.tokenizer = encoder.tokenizer
         self.device = encoder.device
+        # the encoder's captured programs (a serving engine's), if any:
+        # score_pairs replays one graph per [rows, L] pair batch
+        self.graphs = encoder.graphs
         if params is None:
             rng = np.random.default_rng(seed)
             params = {
@@ -147,13 +151,14 @@ class CrossEncoder:
         self, queries: Sequence[str], docs: Sequence[str]
     ) -> np.ndarray:
         ids, mask, tt = self.encode_pairs(queries, docs)
+        (scores,) = run_program(
+            self.graphs, ("cross_encode", *ids.shape), self._forward,
+            {"ids": ids, "mask": mask, "tt": tt}, self.device)
+        return scores
+
+    def _forward(self, ids, mask, tt):
         with torch.inference_mode():
-            scores = self.scores(
-                torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(mask).to(self.device),
-                torch.from_numpy(tt).to(self.device),
-            )
-        return scores.cpu().numpy()
+            return (self.scores(ids, mask, tt),)
 
     def rerank(
         self,

@@ -18,6 +18,11 @@ the Python one, as the JAX constructor chooses; ``tokenizer_impl``
 names the one ``tokenize`` and ``encode`` use. The two agree on every
 tested input (``tests/test_torch_native.py``) but may differ on exotic
 non-Latin text, so a store records its choice and the engine pins it.
+
+``graphs``: a :class:`~legal_rag_tpu_torch.utils.graphs.GraphSet` (the
+serving engine attaches its own) replays one captured forward per
+``(batch, length)`` bucket, the shapes the JAX encoder compiles for;
+None (the default, and the build path's) runs the forward op by op.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from legal_rag_tpu_torch.models.minilm import (
 from legal_rag_tpu_torch.models.wordpiece import (
     WordPieceTokenizer, build_wordpiece_vocab, pad_and_bucket,
 )
+from legal_rag_tpu_torch.utils.graphs import GraphSet, run_program
 
 
 class SentenceEncoder:
@@ -102,6 +108,7 @@ class SentenceEncoder:
             cfg, minilm_state_dict_from_jax(params)
         ).to(self.device)
         self.cfg = self.model.cfg
+        self.graphs: Optional[GraphSet] = None
 
     @property
     def tokenizer_impl(self) -> str:
@@ -133,20 +140,20 @@ class SentenceEncoder:
         batch_size = batch_size or self.cfg.encode_batch
         order = sorted(range(len(encoded)), key=lambda i: len(encoded[i]))
         out = np.empty((len(encoded), self.cfg.hidden), dtype=np.float32)
-        with torch.inference_mode():
-            for lo in range(0, len(order), batch_size):
-                idx = order[lo:lo + batch_size]
-                ids, mask = pad_and_bucket(
-                    [encoded[i] for i in idx], self.cfg.max_len,
-                    self.tokenizer.pad_id,
-                )
-                emb = minilm_encode(
-                    self.model,
-                    torch.from_numpy(ids).to(self.device),
-                    torch.from_numpy(mask).to(self.device),
-                )
-                out[idx] = emb.cpu().numpy()
+        for lo in range(0, len(order), batch_size):
+            idx = order[lo:lo + batch_size]
+            ids, mask = pad_and_bucket(
+                [encoded[i] for i in idx], self.cfg.max_len,
+                self.tokenizer.pad_id,
+            )
+            (out[idx],) = run_program(
+                self.graphs, ("encode", *ids.shape), self._forward,
+                {"ids": ids, "mask": mask}, self.device)
         return out
+
+    def _forward(self, ids: torch.Tensor, mask: torch.Tensor):
+        with torch.inference_mode():
+            return (minilm_encode(self.model, ids, mask),)
 
     def encode(
         self,

@@ -245,12 +245,13 @@ def pq_topk(
     codebooks: torch.Tensor,    # [2m, 16, dsub] float32
     k: int,
     *,
-    n_valid: Optional[int] = None,
+    n_valid=None,
     seg_rows: int = 8,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k candidates over a 4-bit-PQ-coded corpus, exact under the
     PQ metric: ``(pq_scores [Q, k] f32, ids [Q, k] i32)`` sorted by
-    (PQ score desc, id asc); ``k <= N``.
+    (PQ score desc, id asc); ``k <= N``. ``n_valid``: an int or a 0-d
+    tensor on the codes' device, read there (no host sync).
 
     Phase 1 is K2 over the bf16-rounded tables (rows ``>= N`` masked in
     the kernel); segments starting at or past ``n_valid`` are then
@@ -287,7 +288,12 @@ def pq_topk(
     cand = torch.bmm(
         decoded.reshape(q, kk * seg_rows, n_sub * dsub), queries[:, :, None]
     )[:, :, 0]
-    limit = n if n_valid is None else min(int(n_valid), n)
+    if n_valid is None:
+        limit = n
+    elif isinstance(n_valid, torch.Tensor):
+        limit = torch.clamp(n_valid, max=n)
+    else:
+        limit = min(int(n_valid), n)
     cand = torch.where(member < limit, cand, float("-inf"))
     s, i = sort_score_desc_id_asc(cand, member)
     return s[:, :k], i[:, :k].int()
@@ -488,7 +494,8 @@ def _pq_ivf_topk_impl(
     sub_codes = cell_codes[rows]                                 # [P*S, m]
     sub_ids = cell_doc_ids[rows].long()                          # [P*S]
     n_sub = probes * cell_size
-    n_valid = int((sub_ids >= 0).sum())
+    # a 0-d device tensor, as the reference keeps it traced
+    n_valid = (sub_ids >= 0).sum()
 
     kk = min(k, n_sub)
     s, i = pq_topk(queries, sub_codes, codebooks, kk, n_valid=n_valid)

@@ -155,6 +155,8 @@ class SegmaxKernel(CudaKernel):
     ``int8_launches`` those of the int8 tier, whichever kernel ran;
     ``tensor_core_launches`` counts the tensor-core kernel's among both."""
 
+    COUNTERS = ("launches", "int8_launches", "tensor_core_launches")
+
     def __init__(self) -> None:
         super().__init__("segmax_rm", "segmax_rm.cu", {
             "segmax_rm_launch": [

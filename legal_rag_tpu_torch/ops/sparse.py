@@ -11,7 +11,8 @@ serving path gathers postings on the host. The device side:
   budget truncation keeps the heaviest postings where this one keeps
   the first in term order;
 - :func:`bm25_score_batch`, a batched scatter-add of the postings into
-  a ``[Q, N]`` score accumulator, and :func:`bm25_topk` over it.
+  a ``[Q, N]`` score accumulator (in fixed point, so the same on every
+  run), and :func:`bm25_topk` over it.
 """
 
 from __future__ import annotations
@@ -224,6 +225,11 @@ def build_bm25(
     )
 
 
+# the fixed-point scatter's fraction bits: a posting's weight is kept
+# to 2**-32 (2.3e-10), far below fp32's step at a BM25 total of ~1
+FIXED_POINT_BITS = 32
+
+
 def bm25_score_batch(
     post_ids: torch.Tensor, post_w: torch.Tensor, n_docs: int
 ) -> torch.Tensor:
@@ -232,20 +238,27 @@ def bm25_score_batch(
     padding, or ``-1``) drop.
 
     Out-of-range ids are remapped to an extra sink column ``n_docs``
-    that is sliced off, so no id wraps or faults. On a CUDA tensor the
-    scatter uses atomics: the summation order, and so the last bits of
-    a doc's total, can change from run to run.
+    that is sliced off, so no id wraps or faults. The sum is taken in
+    64-bit fixed point: each weight cut (toward zero) to a multiple of
+    ``2**-FIXED_POINT_BITS``, the integers summed, the total rounded
+    once to fp32. Integer adds give the same total in any order, so the
+    card's atomics give the same scores on every run and in every graph
+    replay (an fp32 scatter-add changes in the last bits from run to
+    run). Weights and totals must stay below ``2**31`` in magnitude;
+    BM25's are tens.
     """
     q = post_ids.shape[0]
     post_ids = post_ids.long()
     post_ids = torch.where(
         (post_ids >= 0) & (post_ids < n_docs), post_ids, n_docs
     )
-    scores = torch.zeros(
-        (q, n_docs + 1), dtype=torch.float32, device=post_w.device
-    )
-    scores.scatter_add_(1, post_ids, post_w.float())
-    return scores[:, :n_docs]
+    # scaling by a power of two is exact in fp32, and so is the int64
+    # to fp32 conversion's one rounding of the total
+    fixed = (post_w.float() * 2.0 ** FIXED_POINT_BITS).long()
+    acc = torch.zeros((q, n_docs + 1), dtype=torch.int64,
+                      device=post_w.device)
+    acc.scatter_add_(1, post_ids, fixed)
+    return acc[:, :n_docs].float() * 2.0 ** -FIXED_POINT_BITS
 
 
 def bm25_gather_postings_device(

@@ -313,14 +313,16 @@ def sharded_hybrid_search(
     data_axis: Optional[str] = None,
     ivf_probes: int = 64,
     ivf_cell_size: int = 1024,
-    n_queries: Optional[int] = None,
+    n_queries=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns ``(fused [Q,k], ids [Q,k] int32, sem [Q,k], keyword [Q,k])``.
 
     ``mode='weighted'``: fusion over the dense candidates;
     ``mode='rrf'``: reciprocal-rank fusion of the dense and sparse
     lists (sem/keyword are then 0). ``n_queries``: the real (unpadded)
-    rows of the batch; only they vote for IVF cells. ``data_axis``: on a
+    rows of the batch, an int or a 0-d tensor (read on the device, as
+    the reference traces it, so one captured program serves every
+    batch of a bucket); only they vote for IVF cells. ``data_axis``: on a
     2-D ``(data, shard)`` mesh the query batch also splits over this
     axis (Q must divide its size). The row-sharded operands are
     GlobalArrays on ``mesh`` or tensors (split into row views where
@@ -345,7 +347,7 @@ def sharded_hybrid_search(
     if is_ivf:
         cents = as_global(ivf_centroids, mesh, AXIS)
         cell_ids = as_global(ivf_doc_ids, mesh, AXIS)
-    nq = q_emb.shape[0] if n_queries is None else int(n_queries)
+    nq = q_emb.shape[0] if n_queries is None else n_queries
     # IVF cells hold arbitrary global ids, so the scatter path's row
     # arithmetic cannot apply: IVF always takes the segment sums
     use_segsum = is_ivf or sparse_mode == "segsum" or (
@@ -362,7 +364,8 @@ def sharded_hybrid_search(
         if is_ivf:
             # padded batch rows do not vote for cells: real rows by
             # GLOBAL query index (a 2-D mesh splits Q contiguously)
-            q_valid = torch.arange(work.rows, device=dev) + d * work.rows < nq
+            q_valid = torch.arange(work.rows, device=dev) + d * work.rows < (
+                nq.to(dev) if isinstance(nq, torch.Tensor) else nq)
             d_s, d_i = _local_pq_ivf_topc(
                 qe, docs.local(pos), cell_ids.local(pos), cents.local(pos),
                 cbs.local(pos), c, ivf_probes, ivf_cell_size, q_valid=q_valid,

@@ -14,6 +14,17 @@ IVF cells and ``dense.use_ivf`` is set). The int8 and pq tiers
 oversample their candidates and, in weighted mode, rescore them exactly
 in fp32 on the host (``exact_rescore``), as the JAX engine does.
 
+Where the JAX engine compiles one executable per bucket, this one
+captures one CUDA graph per key (``utils/graphs.py``): the search's key
+is its static arguments, ``(q_pad, budget, k_dev, c, mode, rrf_k,
+dtype, ivf_probes, ivf_cell_size)``, the real query count an input, so
+every batch of a bucket replays one graph. The engine's
+:class:`~legal_rag_tpu_torch.utils.graphs.GraphSet` (``.graphs``) also
+serves the query encoder's forward and, through the facade, the
+cross-encoder's. It exists when every mesh position sits on the
+engine's card in this process (S=1, or shards repeating that card);
+on the CPU, or a mesh over several cards, the programs run op by op.
+
 The late-interaction modes run over the store's token slab
 (``mv_tokens.npy``, from ``build --multi-vector``), uploaded on first
 use: ``"maxsim"`` scans the whole slab, ``"maxsim-rerank"`` rescores
@@ -43,6 +54,7 @@ from legal_rag_tpu_torch.parallel.mesh import make_mesh
 from legal_rag_tpu_torch.parallel.sharded import (
     ShardedIndex, ShardedMultiVectorIndex, sharded_hybrid_search,
 )
+from legal_rag_tpu_torch.utils.graphs import GraphSet, run_program
 
 logger = logging.getLogger("LegalRAG-RetrievalEngine")
 
@@ -122,9 +134,12 @@ class RetrievalEngine:
                 f"embedding dim {store.dim}; the store was built with a "
                 "different encoder (see manifest['encoder'])"
             )
-        self.encoder = encoder
         self.mesh = mesh or make_mesh(config.sharding.num_shards,
                                       device=self.device)
+        self.graphs = self._graph_set()
+        # the encoder's forward replays through the engine's graphs too
+        encoder.graphs = self.graphs
+        self.encoder = encoder
         if config.dense.dtype == "pq" and store.pq_codes is not None:
             # build-time PQ artifacts: loads skip k-means
             ivf = store.ivf_index() if config.dense.use_ivf else None
@@ -152,6 +167,16 @@ class RetrievalEngine:
                 store.embeddings, self.mesh, dtype=config.dense.dtype,
                 pq_m=config.dense.pq_m,
             )
+
+    def _graph_set(self) -> Optional[GraphSet]:
+        """The engine's captured programs: on a card, when every mesh
+        position lies on it in this process; else None (op by op)."""
+        if self.device.type != "cuda" or self.mesh.multi_process:
+            return None
+        graphs = GraphSet(self.device)
+        if any(d != graphs.device for d in self.mesh.devices.flat):
+            return None
+        return graphs
 
     # -- native batched API -------------------------------------------------
 
@@ -262,30 +287,32 @@ class RetrievalEngine:
             )
             post_ids, post_w = self.store.bm25.gather_postings(queries, budget)
         with self.timer.stage("device_search"):
-            dev = self.device
+            c = max(cfg.fusion.candidate_multiplier * k_dev, k_dev)
             idx = self.index
-            scores, ids, sem, key = sharded_hybrid_search(
-                idx.docs,
-                torch.from_numpy(post_ids).to(dev),
-                torch.from_numpy(post_w).to(dev),
-                torch.from_numpy(np.ascontiguousarray(q_dev)).to(dev),
-                torch.tensor(hybrid_weights, dtype=torch.float32, device=dev),
-                idx.doc_scales,
-                idx.pq_codebooks,
-                idx.ivf_centroids,
-                idx.ivf_doc_ids,
-                mesh=self.mesh,
-                k=k_dev,
-                c=max(cfg.fusion.candidate_multiplier * k_dev, k_dev),
-                n_docs=self.store.n_docs,
-                mode=mode,
-                rrf_k=cfg.fusion.rrf_k,
-                ivf_probes=cfg.dense.ivf_probes,
-                ivf_cell_size=idx.ivf_cell_size,
-                n_queries=n_real,
+            program_key = (
+                "search", q_pad, budget, k_dev, c, mode, cfg.fusion.rrf_k,
+                str(idx.docs.dtype), cfg.dense.ivf_probes, idx.ivf_cell_size,
             )
-            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
-            sem, key = sem.cpu().numpy(), key.cpu().numpy()
+
+            def search(post_ids, post_w, q_emb, weights, n_queries):
+                return sharded_hybrid_search(
+                    idx.docs, post_ids, post_w, q_emb, weights,
+                    idx.doc_scales, idx.pq_codebooks, idx.ivf_centroids,
+                    idx.ivf_doc_ids, mesh=self.mesh, k=k_dev, c=c,
+                    n_docs=self.store.n_docs, mode=mode,
+                    rrf_k=cfg.fusion.rrf_k, ivf_probes=cfg.dense.ivf_probes,
+                    ivf_cell_size=idx.ivf_cell_size, n_queries=n_queries,
+                )
+
+            # every input whole, padded rows included: a replay reads
+            # nothing a previous batch left behind
+            scores, ids, sem, key = run_program(
+                self.graphs, program_key, search, {
+                    "post_ids": post_ids, "post_w": post_w,
+                    "q_emb": np.ascontiguousarray(q_dev, np.float32),
+                    "weights": np.asarray(hybrid_weights, np.float32),
+                    "n_queries": np.asarray(n_real, np.int64),
+                }, self.device)
         if rescore:
             with self.timer.stage("int8_rescore"):
                 # narrow to the exact dense top-C pool first, so the

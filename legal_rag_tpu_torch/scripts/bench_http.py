@@ -22,7 +22,7 @@ Usage:
   python -m legal_rag_tpu_torch.scripts.bench_http --store DIR
       [--port 8123] [--requests 40] [--concurrency 1,16,64]
       [--no-coalesce-pass] [--no-rerank-pass] [--device cuda|cpu]
-      [--report PATH]
+      [--report PATH] [--server-log PATH]
 """
 
 from __future__ import annotations
@@ -236,6 +236,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="additionally measure without the CE stage")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--report", default=None)
+    ap.add_argument("--server-log", default=os.devnull,
+                    help="append the servers' output to this file")
     args = ap.parse_args(argv)
 
     import torch
@@ -248,7 +250,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     report = run(args.store, args.port, args.requests,
                  [int(x) for x in args.concurrency.split(",")],
                  args.no_coalesce_pass, args.no_rerank_pass, args.device,
-                 log=lambda s: print(s, flush=True))
+                 log=lambda s: print(s, flush=True),
+                 server_log=args.server_log)
     print(json.dumps(report))
     if args.report:
         with open(args.report, "w", encoding="utf-8") as f:

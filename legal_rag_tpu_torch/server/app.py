@@ -102,6 +102,10 @@ class EngineHost:
                 "procedure and what are the rights of the victim?"
             )
             logger.info("warmup complete in %.1fs", time.time() - t0)
+            if engine.engine.graphs is not None:
+                # the buckets the warmup touched are captured, as the
+                # JAX server's warmup compiles them
+                logger.info("%s", engine.engine.graphs.summary())
             # coalesce concurrent requests' searches into shared device
             # dispatches (after warmup, so compiles never serialize
             # behind the window). LEGAL_RAG_NO_COALESCE=1 serves each

@@ -7,7 +7,9 @@ build takes seconds), then loaded with :mod:`ctypes`. Libraries land in
 a hash of the source bytes, the headers beside them (``*.cuh``) and the
 compiler flags, so an edited source or header rebuilds and an unchanged
 one is reused. :class:`CudaKernel` holds one built library, its entry
-points' ctypes signatures and its count of launches.
+points' ctypes signatures and its counts of launches, direct and inside
+CUDA-graph replays (``utils/graphs.py``); :data:`KERNELS` lists every
+one.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +39,9 @@ NVCC_FLAGS = (
 )
 
 _locks: Dict[str, threading.Lock] = {}
+# every kernel library object, in creation order (each ops module makes
+# its own at import): a captured program reads their counters
+KERNELS: List["CudaKernel"] = []
 _locks_guard = threading.Lock()
 
 
@@ -123,7 +128,14 @@ class CudaKernel:
     ``count_launch()``, a plain increment; ``build_log`` keeps nvcc's
     report. Each entry point makes the tensor's device current only
     when it is not, and sets its kernels' attributes once per device
-    (``csrc/setup.cuh``)."""
+    (``csrc/setup.cuh``).
+
+    A wrapper called while a CUDA graph is captured records a launch
+    instead of making one: the captured program takes that count back
+    (:meth:`uncount`) and adds it to ``in_replays`` at every replay
+    (:meth:`count_replays`), one entry per name in ``COUNTERS``."""
+
+    COUNTERS: Tuple[str, ...] = ("launches",)
 
     def __init__(self, name: str, source: str,
                  signatures: Dict[str, Sequence[type]]) -> None:
@@ -131,9 +143,11 @@ class CudaKernel:
         self.source = source
         self.signatures = signatures
         self.launches = 0
+        self.in_replays = dict.fromkeys(self.COUNTERS, 0)
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        KERNELS.append(self)
 
     def library(self) -> ctypes.CDLL:
         lib = self._lib
@@ -155,3 +169,23 @@ class CudaKernel:
 
     def count_launch(self) -> None:
         self.launches += 1
+
+    def counts(self) -> Dict[str, int]:
+        """The direct launch counters, by name."""
+        return {name: getattr(self, name) for name in self.COUNTERS}
+
+    def uncount(self, delta: Dict[str, int]) -> None:
+        """Take back counts that a capture recorded, not launched."""
+        for name, n in delta.items():
+            setattr(self, name, getattr(self, name) - n)
+
+    def count_replays(self, delta: Dict[str, int]) -> None:
+        """One replay of a program that captured ``delta`` launches."""
+        for name, n in delta.items():
+            self.in_replays[name] += n
+
+    def reset_counts(self) -> None:
+        """Every counter, direct and in replays, back to 0."""
+        for name in self.COUNTERS:
+            setattr(self, name, 0)
+            self.in_replays[name] = 0

@@ -129,14 +129,33 @@ COPY_COMMENTS = {
                 "# None = len(jax.devices())"),),
 }
 
+# lines the port adds to a copied module, mapped away before the
+# comparison: the server logs the CUDA graphs its warmup captured
+COPY_ADDITIONS = {
+    "server.app": ((
+        '            if engine.engine.graphs is not None:\n'
+        '                # the buckets the warmup touched are captured, as the\n'
+        '                # JAX server\'s warmup compiles them\n'
+        '                logger.info("%s", engine.engine.graphs.summary())\n',
+        ""),),
+}
+
+
+def _port_lines_mapped(spec: str, src: str) -> str:
+    """The port's source with COPY_COMMENTS and COPY_ADDITIONS mapped
+    back to the reference's text; each must occur exactly once."""
+    for ours, theirs in COPY_COMMENTS.get(spec, ()) + COPY_ADDITIONS.get(
+            spec, ()):
+        assert src.count(ours) == 1, ours
+        src = src.replace(ours, theirs)
+    return src
+
 
 @pytest.mark.parametrize("spec", COPIED_MODULES + COPIED_OBJECTS)
 def test_copy_is_verbatim(spec):
     port = inspect.getsource(_resolve("legal_rag_tpu_torch", spec))
     ref = inspect.getsource(_resolve("legal_rag_tpu", spec))
-    for ours, theirs in COPY_COMMENTS.get(spec, ()):
-        assert port.count(ours) == 1, ours
-        port = port.replace(ours, theirs)
+    port = _port_lines_mapped(spec, port)
     assert _as_reference(port) == ref
 
 
@@ -182,9 +201,7 @@ def test_copies_rewrite_only_import_lines():
     for name in COPIED_MODULES:
         src = inspect.getsource(
             importlib.import_module(f"legal_rag_tpu_torch.{name}"))
-        for ours, theirs in COPY_COMMENTS.get(name, ()):
-            src = src.replace(ours, theirs)
-        port = src.splitlines()
+        port = _port_lines_mapped(name, src).splitlines()
         ref = inspect.getsource(
             importlib.import_module(f"legal_rag_tpu.{name}")
         ).splitlines()
