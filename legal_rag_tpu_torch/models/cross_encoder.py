@@ -33,6 +33,7 @@ from legal_rag_tpu_torch.models.minilm import MiniLM, minilm_hidden_states
 from legal_rag_tpu_torch.models.train import adamw
 from legal_rag_tpu_torch.models.wordpiece import pad_and_bucket
 from legal_rag_tpu_torch.utils.graphs import run_program
+from legal_rag_tpu_torch.utils.timing import StageTimer, timed
 
 
 def cross_encode_scores(
@@ -61,12 +62,16 @@ class CrossEncoder:
     from ``seed`` by numpy, zero bias) on a copy of the bi-encoder's
     trunk. ``params`` (the attribute) reads the current weights back as
     that pytree, so a trained cross-encoder saves as the JAX one does.
+    ``timer``: where ``score_pairs`` is timed as the stage ``ce`` (a
+    serving engine's ``StageTimer``; else one of its own).
     """
 
     def __init__(
         self, encoder: SentenceEncoder, seed: int = 0, params=None,
+        timer: Optional[StageTimer] = None,
     ):
         self.cfg = encoder.cfg
+        self.timer = timer if timer is not None else StageTimer()
         self.tokenizer = encoder.tokenizer
         self.device = encoder.device
         # the encoder's captured programs (a serving engine's), if any:
@@ -147,6 +152,7 @@ class CrossEncoder:
 
     # -- scoring -------------------------------------------------------------
 
+    @timed("ce")
     def score_pairs(
         self, queries: Sequence[str], docs: Sequence[str]
     ) -> np.ndarray:

@@ -25,6 +25,14 @@ cross-encoder's. It exists when every mesh position sits on the
 engine's card in this process (S=1, or shards repeating that card);
 on the CPU, or a mesh over several cards, the programs run op by op.
 
+The engine's ``timer`` is the served path's one ``StageTimer`` (``/health``
+and the benchmark read it): ``search`` around each ``search_batch`` call
+as its caller waits for it, ``coalesce_wait`` (each coalesced call's
+queue wait), ``encode``, ``postings``, ``device_search``,
+``int8_rescore`` and ``assemble`` in a dispatch, ``graph_wait`` (the
+graph set's lock) inside the spans that replay; the facade adds
+``request``, ``classify``, ``ce`` and ``respond``.
+
 The late-interaction modes run over the store's token slab
 (``mv_tokens.npy``, from ``build --multi-vector``), uploaded on first
 use: ``"maxsim"`` scans the whole slab, ``"maxsim-rerank"`` rescores
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from legal_rag_tpu_torch.config import RetrievalConfig, DEFAULT_CONFIG
-from legal_rag_tpu_torch.utils.timing import StageTimer
+from legal_rag_tpu_torch.utils.timing import StageTimer, timed
 from legal_rag_tpu_torch.index.store import VectorStore
 from legal_rag_tpu_torch.models.encoder import SentenceEncoder
 from legal_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
@@ -173,7 +181,7 @@ class RetrievalEngine:
         position lies on it in this process; else None (op by op)."""
         if self.device.type != "cuda" or self.mesh.multi_process:
             return None
-        graphs = GraphSet(self.device)
+        graphs = GraphSet(self.device, timer=self.timer)
         if any(d != graphs.device for d in self.mesh.devices.flat):
             return None
         return graphs
@@ -191,10 +199,12 @@ class RetrievalEngine:
         from legal_rag_tpu_torch.server.batching import RequestCoalescer
 
         self._coalescer = RequestCoalescer(
-            self._search_batch_impl, window_s=window_s, max_batch=max_batch
+            self._search_batch_impl, window_s=window_s, max_batch=max_batch,
+            stage_timer=self.timer,
         )
         return self._coalescer
 
+    @timed("search")
     def search_batch(
         self,
         queries: Sequence[str],
@@ -270,7 +280,9 @@ class RetrievalEngine:
                     )
                 scores, ids = s.cpu().numpy(), i.cpu().numpy()
             sem, key = scores, np.zeros_like(scores)
-            return self._assemble_results(n_real, k, scores, ids, sem, key)
+            with self.timer.stage("assemble"):
+                return self._assemble_results(n_real, k, scores, ids, sem,
+                                              key)
 
         with self.timer.stage("encode"):
             q_emb = self.encoder.encode(queries)
@@ -328,7 +340,8 @@ class RetrievalEngine:
                         cfg.fusion.candidate_multiplier * k, k
                     ),
                 )
-        return self._assemble_results(n_real, k, scores, ids, sem, key)
+        with self.timer.stage("assemble"):
+            return self._assemble_results(n_real, k, scores, ids, sem, key)
 
     def _assemble_results(
         self, n_real, k, scores, ids, sem, key

@@ -4,7 +4,9 @@ The port's counterpart of ``legal_rag_tpu.retrieval.facade``: classify
 -> retrieve (batched concept expansion) -> rerank -> prioritize/expand
 -> generate, returning ``{query, intent, response, context_used,
 adapted}``. Same constructor arguments plus ``device``; ``query`` and
-the ``adapted`` view are the JAX package's code verbatim.
+the ``adapted`` view are the JAX package's code verbatim, but for the
+spans ``query`` opens on the engine's ``StageTimer``: ``request`` around
+it and ``respond`` around the responder and the adapted view.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from legal_rag_tpu_torch.retrieval.llm import LLMClient, default_llm_client
 from legal_rag_tpu_torch.retrieval.classifier import QueryClassifier
 from legal_rag_tpu_torch.retrieval.orchestrator import LegalOrchestrator
 from legal_rag_tpu_torch.retrieval.responder import LegalResponder
+from legal_rag_tpu_torch.utils.timing import timed
 
 
 class LegalEngine:
@@ -51,6 +54,8 @@ class LegalEngine:
                     ("RESPONDER_MODELS", "LLM_MODELS")
                 )
         self.engine = RetrievalEngine(store, config=config, device=device)
+        # the engine's one StageTimer: /health and the benchmark read it
+        self.timer = self.engine.timer
         reranker = None
         if rerank is None:
             rerank = store.ce_params is not None
@@ -63,7 +68,7 @@ class LegalEngine:
                     "checkpoint; rebuild with --rerank-steps"
                 )
             reranker = CrossEncoder(
-                self.engine.encoder, params=store.ce_params
+                self.engine.encoder, params=store.ce_params, timer=self.timer,
             )
         self.orchestrator = LegalOrchestrator(
             self.engine, classifier=QueryClassifier(classifier_llm),
@@ -72,6 +77,7 @@ class LegalEngine:
         )
         self.responder = LegalResponder(responder_llm)
 
+    @timed("request")
     def query(
         self, query_text: str, k: int = 5, mode: Optional[str] = None
     ) -> Dict[str, Any]:
@@ -79,25 +85,26 @@ class LegalEngine:
         fusion; 'rrf' = native fusion (keyword-only hits can surface).
         """
         orchestration = self.orchestrator.orchestrate(query_text, k=k, mode=mode)
-        response = self.responder.generate_response(
-            query=query_text,
-            context=orchestration["results"],
-            intent=orchestration["intent"],
-        )
-        result = {
-            "query": query_text,
-            "intent": orchestration["intent"],
-            "response": response.to_dict(),
-            "context_used": [
-                {
-                    "citation": c["chunk"]["canonical_header"],
-                    "section_id": c["chunk"].get("section_id"),
-                    "expanded": "parent_context" in c,
-                }
-                for c in orchestration["results"]
-            ],
-        }
-        result["adapted"] = self._adapted_view(result, orchestration)
+        with self.timer.stage("respond"):
+            response = self.responder.generate_response(
+                query=query_text,
+                context=orchestration["results"],
+                intent=orchestration["intent"],
+            )
+            result = {
+                "query": query_text,
+                "intent": orchestration["intent"],
+                "response": response.to_dict(),
+                "context_used": [
+                    {
+                        "citation": c["chunk"]["canonical_header"],
+                        "section_id": c["chunk"].get("section_id"),
+                        "expanded": "parent_context" in c,
+                    }
+                    for c in orchestration["results"]
+                ],
+            }
+            result["adapted"] = self._adapted_view(result, orchestration)
         return result
 
     def _adapted_view(

@@ -114,7 +114,8 @@ class LegalOrchestrator:
     def orchestrate(
         self, query: str, k: int = 5, mode: Optional[str] = None
     ) -> Dict[str, Any]:
-        intent = self.classifier.classify(query)
+        with self.engine.timer.stage("classify"):
+            intent = self.classifier.classify(query)
         fusion_cfg = self.engine.config.fusion
 
         queries = [query]

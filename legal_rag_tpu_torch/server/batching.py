@@ -19,11 +19,13 @@ recompile, not coalesce.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 
 class _Item:
     __slots__ = ("queries", "k", "weights", "mode", "event", "result", "error")
+    __slots__ += ("t_submit",)
 
     def __init__(self, queries, k, weights, mode):
         self.queries = list(queries)
@@ -33,6 +35,7 @@ class _Item:
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        self.t_submit = time.perf_counter()
 
 
 class RequestCoalescer:
@@ -49,6 +52,7 @@ class RequestCoalescer:
         window_s: float = 0.003,
         max_batch: int = 64,
         timeout_s: float = 120.0,
+        stage_timer=None,
     ):
         self._fn = fn
         self._window = window_s
@@ -61,6 +65,9 @@ class RequestCoalescer:
         # many device dispatches
         self.requests = 0
         self.dispatches = 0
+        # each call's queue wait, from submit to the start of its
+        # group's dispatch, as ``coalesce_wait`` on the engine's timer
+        self.stage_timer = stage_timer
 
     def submit(
         self,
@@ -116,6 +123,11 @@ class RequestCoalescer:
             try:
                 with self._lock:
                     self.dispatches += 1
+                if self.stage_timer is not None:
+                    now = time.perf_counter()
+                    for it in items:
+                        self.stage_timer.add("coalesce_wait",
+                                             now - it.t_submit)
                 rows = self._fn(
                     queries, k=k, hybrid_weights=weights, mode=mode
                 )

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from legal_rag_tpu_torch.utils.cuda_build import KERNELS, CudaKernel
+from legal_rag_tpu_torch.utils.timing import StageTimer
 
 Inputs = Dict[str, np.ndarray]
 Program = Callable[..., Tuple[torch.Tensor, ...]]
@@ -105,9 +106,12 @@ class GraphSet:
     two); ``check_syncs`` runs each warm-up under
     ``set_sync_debug_mode("error")``, so a host sync in a program raises
     where it is rather than inside the capture (process-wide: for
-    single-threaded checks, not for a server)."""
+    single-threaded checks, not for a server). ``timer`` (the engine's,
+    else one of the set's own) times the wait for the lock as
+    ``graph_wait``, inside the caller's span."""
 
-    def __init__(self, device="cuda", check_syncs: bool = False) -> None:
+    def __init__(self, device="cuda", check_syncs: bool = False,
+                 timer: Optional[StageTimer] = None) -> None:
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"GraphSet needs a CUDA device, got {device}")
@@ -116,6 +120,7 @@ class GraphSet:
         self.device = device
         self.check_syncs = check_syncs
         self.enabled = True
+        self.timer = timer if timer is not None else StageTimer()
         self.programs: Dict[Hashable, CapturedProgram] = {}
         self.lock = threading.Lock()
         self._pool = torch.cuda.graph_pool_handle()
@@ -130,7 +135,9 @@ class GraphSet:
         function for every call with one key."""
         if not self.enabled:
             return run_eager(fn, inputs, self.device)
-        with self.lock:
+        with self.timer.stage("graph_wait"):
+            self.lock.acquire()
+        try:
             prog = self.programs.get(key)
             if prog is None:
                 prog = self._capture(key, fn, inputs)
@@ -138,6 +145,8 @@ class GraphSet:
                 self._fill(prog.inputs, inputs)
             prog.replay()
             return to_host(prog.outputs)
+        finally:
+            self.lock.release()
 
     def pool_bytes(self) -> int:
         """Bytes the caching allocator holds for the set's memory pool

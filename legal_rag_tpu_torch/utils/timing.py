@@ -8,6 +8,7 @@ the same context manager."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import threading
 import time
@@ -40,11 +41,18 @@ class StageTimer:
             with ctx:
                 yield
         finally:
-            dt = time.perf_counter() - start
-            with self._lock:
-                self._totals[name] += dt
-                self._counts[name] += 1
-                self._last[name] = dt
+            self.add(name, time.perf_counter() - start)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Record ``seconds`` under ``name`` as one call of that stage:
+        the path of every stage, and of an interval that is no ``with``
+        block on one thread (a queue wait from one thread's submit to
+        another's dispatch). Called directly it emits no profiler
+        range: only :meth:`stage` does."""
+        with self._lock:
+            self._totals[name] += seconds
+            self._counts[name] += 1
+            self._last[name] = seconds
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
@@ -66,18 +74,16 @@ class StageTimer:
             self._last.clear()
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Capture a torch.profiler trace for everything in the scope (host
-    and, where the build has it, CUDA activity), written to ``log_dir``
-    as a Chrome trace — the profiling hook SURVEY.md §5.1 calls for (the
-    reference only logs whole-request wall clock)."""
-    import torch.profiler
-
-    acts = torch.profiler.supported_activities()
-    handler = torch.profiler.tensorboard_trace_handler(log_dir)
-    with torch.profiler.profile(activities=acts, on_trace_ready=handler):
-        yield
+def timed(name: str):
+    """Decorator: each call of the method is the stage ``name`` on its
+    object's ``timer``."""
+    def wrap(method):
+        @functools.wraps(method)
+        def timed_method(self, *args, **kwargs):
+            with self.timer.stage(name):
+                return method(self, *args, **kwargs)
+        return timed_method
+    return wrap
 
 
 def time_ms(fn: Callable[[], object], iters: int = 20,

@@ -6,6 +6,7 @@ original's. An edit on either side fails here until both agree."""
 import importlib
 import inspect
 import re
+import textwrap
 
 import pytest
 
@@ -129,8 +130,39 @@ COPY_COMMENTS = {
                 "# None = len(jax.devices())"),),
 }
 
-# lines the port adds to a copied module, mapped away before the
-# comparison: the server logs the CUDA graphs its warmup captured
+def _under(with_line: str, block: str):
+    """The reference's ``block`` run under one ``with`` line the port
+    adds: (port text, reference text)."""
+    return with_line + textwrap.indent(block, "    "), block
+
+
+_RESPOND = """\
+        response = self.responder.generate_response(
+            query=query_text,
+            context=orchestration["results"],
+            intent=orchestration["intent"],
+        )
+        result = {
+            "query": query_text,
+            "intent": orchestration["intent"],
+            "response": response.to_dict(),
+            "context_used": [
+                {
+                    "citation": c["chunk"]["canonical_header"],
+                    "section_id": c["chunk"].get("section_id"),
+                    "expanded": "parent_context" in c,
+                }
+                for c in orchestration["results"]
+            ],
+        }
+        result["adapted"] = self._adapted_view(result, orchestration)
+"""
+
+# lines the port adds to a copied module or object, mapped away before
+# the comparison: the server logs the CUDA graphs its warmup captured;
+# the served path's spans on the engine's StageTimer (the request, the
+# classifier, each search as its caller waits for it, the responder,
+# and each coalesced call's queue wait, stamped at submit)
 COPY_ADDITIONS = {
     "server.app": ((
         '            if engine.engine.graphs is not None:\n'
@@ -138,6 +170,36 @@ COPY_ADDITIONS = {
         '                # JAX server\'s warmup compiles them\n'
         '                logger.info("%s", engine.engine.graphs.summary())\n',
         ""),),
+    "server.batching": (
+        ("import time\n", ""),
+        ('    __slots__ += ("t_submit",)\n', ""),
+        ("        self.t_submit = time.perf_counter()\n", ""),
+        ("        stage_timer=None,\n", ""),
+        ("        # each call's queue wait, from submit to the start of its\n"
+         "        # group's dispatch, as ``coalesce_wait`` on the engine's timer\n"
+         "        self.stage_timer = stage_timer\n", ""),
+        ("                if self.stage_timer is not None:\n"
+         "                    now = time.perf_counter()\n"
+         "                    for it in items:\n"
+         '                        self.stage_timer.add("coalesce_wait",\n'
+         "                                             now - it.t_submit)\n",
+         ""),
+    ),
+    "retrieval.orchestrator": (
+        _under('        with self.engine.timer.stage("classify"):\n',
+               "        intent = self.classifier.classify(query)\n"),
+    ),
+    "retrieval.engine:RetrievalEngine.search_batch": (
+        ('    @timed("search")\n', ""),
+    ),
+    "retrieval.engine:RetrievalEngine.enable_request_coalescing": (
+        ("max_batch=max_batch,\n            stage_timer=self.timer,\n",
+         "max_batch=max_batch\n"),
+    ),
+    "retrieval.facade:LegalEngine.query": (
+        ('    @timed("request")\n', ""),
+        _under('        with self.timer.stage("respond"):\n', _RESPOND),
+    ),
 }
 
 
@@ -179,17 +241,44 @@ def _without_profiler_lines(src: str):
             if not re.search(r"profiler|trace", ln, re.I)]
 
 
+# StageTimer's method the port adds, ``add`` (an interval recorded that
+# is no ``with`` block), which ``stage`` records through: (port text,
+# reference text), each occurring once
+STAGE_TIMER_ADDITIONS = (
+    ("            self.add(name, time.perf_counter() - start)\n",
+     "            dt = time.perf_counter() - start\n"
+     "            with self._lock:\n"
+     "                self._totals[name] += dt\n"
+     "                self._counts[name] += 1\n"
+     "                self._last[name] = dt\n"),
+    ("    def add(self, name: str, seconds: float) -> None:\n"
+     '        """Record ``seconds`` under ``name`` as one call of that stage:\n'
+     "        the path of every stage, and of an interval that is no ``with``\n"
+     "        block on one thread (a queue wait from one thread's submit to\n"
+     "        another's dispatch). Called directly it emits no profiler\n"
+     '        range: only :meth:`stage` does."""\n'
+     "        with self._lock:\n"
+     "            self._totals[name] += seconds\n"
+     "            self._counts[name] += 1\n"
+     "            self._last[name] = seconds\n"
+     "\n", ""),
+)
+
+
 def test_stage_timer_is_a_copy_apart_from_its_profiler_lines():
     """``utils.timing.StageTimer`` equals the JAX package's but for the
     lines that name the profiler (torch's record_function in place of
-    jax's TraceAnnotation); ``device_trace`` is the port's own, tested in
-    tests/test_torch_timing.py."""
+    jax's TraceAnnotation) and the method ``add`` of
+    STAGE_TIMER_ADDITIONS."""
     from legal_rag_tpu.utils import timing as ref
     from legal_rag_tpu_torch.utils import timing as port
 
     port_src = inspect.getsource(port.StageTimer)
     ref_src = inspect.getsource(ref.StageTimer)
     assert port_src != ref_src
+    for ours, theirs in STAGE_TIMER_ADDITIONS:
+        assert port_src.count(ours) == 1, ours
+        port_src = port_src.replace(ours, theirs)
     assert _without_profiler_lines(port_src) == _without_profiler_lines(ref_src)
     assert "jax" not in inspect.getsource(port)
 

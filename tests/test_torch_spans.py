@@ -1,0 +1,249 @@
+"""The served path's spans on the engine's one ``StageTimer``: the
+request, the classifier, each search as its caller waits for it, the
+coalescer's queue wait, result assembly, the cross-encoder and the
+responder, on a small CPU ``LegalEngine`` with rerank and coalescing on;
+the benchmark's reader of the orchestration's self time; the ranges an
+all-threads profiler finds on the threads that did the work; and, on
+the card, the wait for the graph set's lock inside the spans that
+replay."""
+
+import json
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import pytest
+import torch
+
+from legal_rag_tpu_torch.server.batching import RequestCoalescer
+from legal_rag_tpu_torch.utils.timing import StageTimer
+
+QUERIES = [
+    # victim distress: the expansion's queries in one search
+    "I was robbed at gunpoint just now, what do I do?",
+    "What is the punishment for robbery under BNS?",
+    # narrative: a second, dense-union search
+    "someone is spreading made-up stories that ruined my standing",
+]
+
+REQUEST_SPANS = {"request", "classify", "search", "coalesce_wait", "encode",
+                 "postings", "device_search", "assemble", "ce", "respond"}
+
+
+def _legal_engine(device):
+    from legal_rag_tpu_torch.config import EncoderConfig
+    from legal_rag_tpu_torch.index.synthetic import synthesize_store
+    from legal_rag_tpu_torch.retrieval.facade import LegalEngine
+
+    cfg = EncoderConfig(hidden=96, layers=1, heads=4, intermediate=96,
+                        max_len=32)
+    store = synthesize_store(600, seed=3, planted=QUERIES[1:2], cfg=cfg,
+                             vocab_size=2000, device=device)
+    legal = LegalEngine(store=store, use_llm=False, device=device,
+                        rerank=True)
+    legal.engine.enable_request_coalescing()
+    return legal
+
+
+@pytest.fixture(scope="module")
+def legal():
+    legal = _legal_engine("cpu")
+    for q in QUERIES:
+        legal.query(q, k=5)            # first calls load what they use
+    return legal
+
+
+def test_coalesce_wait_is_one_entry_a_call_from_submit_to_its_dispatch():
+    """Three submitters in one window, two groups (by k) run in turn on
+    the window's timer thread: three waits, and the group that ran
+    second waited at least the first group's whole dispatch."""
+    timer = StageTimer()
+    dispatch_s = 0.3
+
+    def fn(queries, k, hybrid_weights, mode):
+        time.sleep(dispatch_s)
+        return [[(q, k)] for q in queries]
+
+    co = RequestCoalescer(fn, window_s=0.5, max_batch=64, stage_timer=timer)
+    start = threading.Barrier(3)
+    got = {}
+
+    def call(name, k):
+        start.wait(timeout=30)
+        got[name] = co.submit([name], k, [0.5], "rrf")
+
+    threads = [threading.Thread(target=call, args=a)
+               for a in (("a", 1), ("b", 1), ("c", 2))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert got == {"a": [[("a", 1)]], "b": [[("b", 1)]], "c": [[("c", 2)]]}
+    assert (co.requests, co.dispatches) == (3, 2)
+    snap = timer.snapshot()["coalesce_wait"]
+    assert snap["count"] == 3
+    # the last wait recorded is of the group that ran second
+    assert snap["last_ms"] >= 1e3 * dispatch_s
+
+
+def test_query_leaves_every_span_on_the_engine_timer(legal):
+    assert legal.timer is legal.engine.timer
+    assert legal.orchestrator.reranker.timer is legal.timer
+    assert legal.engine._coalescer.stage_timer is legal.timer
+    for q in QUERIES:
+        legal.timer.reset()
+        dispatches = legal.engine.device_dispatches
+        legal.query(q, k=5)
+        snap = legal.timer.snapshot()
+        assert REQUEST_SPANS <= set(snap), q
+        assert "graph_wait" not in snap      # no graph set on the CPU
+        count = {name: st["count"] for name, st in snap.items()}
+        assert count["request"] == count["classify"] == count["ce"] == \
+            count["respond"] == 1
+        # one search at a time: each call its own dispatch
+        n = legal.engine.device_dispatches - dispatches
+        assert count["search"] == count["coalesce_wait"] == n
+        assert count["encode"] == count["postings"] == \
+            count["device_search"] == count["assemble"] == n
+        inside = sum(snap[name]["total_s"]
+                     for name in ("classify", "search", "ce", "respond"))
+        assert inside <= snap["request"]["total_s"]
+        assert snap["search"]["total_s"] >= snap["coalesce_wait"]["total_s"]
+
+
+def test_search_batch_span_without_coalescing(legal, monkeypatch):
+    monkeypatch.setattr(legal.engine, "_coalescer", None)
+    legal.timer.reset()
+    legal.engine.search_batch(QUERIES, k=3)
+    snap = legal.timer.snapshot()
+    assert snap["search"]["count"] == snap["assemble"]["count"] == 1
+    assert "coalesce_wait" not in snap
+
+
+def _readings(legal):
+    from benchmark.harness import LayerContext, reader
+
+    legal.timer.reset()
+    for q in QUERIES:
+        legal.query(q, k=5)
+    ctx = LayerContext(stages=legal.timer.snapshot())
+    return {m: reader(m)(ctx) for m in (
+        "orchestrate_ms.query", "classify_ms.query", "ce_ms.query",
+        "respond_ms.query", "coalesce_wait_ms.query")}
+
+
+def test_orchestrate_ms_is_the_request_self_time(legal, monkeypatch):
+    """A sleep planted in the rule boosts (orchestration's own code)
+    raises ``orchestrate_ms.query`` by about the sleep and leaves the
+    spans inside the request where they were."""
+    before = _readings(legal)
+    assert all(v is not None for v in before.values())
+    assert before["orchestrate_ms.query"] >= 0
+    sleep_s = 0.5
+    boost = legal.orchestrator.prioritize_results
+
+    def slow(results, intent):
+        time.sleep(sleep_s)
+        return boost(results, intent)
+
+    monkeypatch.setattr(legal.orchestrator, "prioritize_results", slow)
+    after = _readings(legal)
+    rise = after["orchestrate_ms.query"] - before["orchestrate_ms.query"]
+    assert 0.9 * 1e3 * sleep_s <= rise <= 1.5 * 1e3 * sleep_s
+    for m in ("classify_ms.query", "ce_ms.query", "respond_ms.query"):
+        assert abs(after[m] - before[m]) < 0.25 * 1e3 * sleep_s, m
+
+
+def test_readers_of_a_program_without_the_spans_read_nothing():
+    from benchmark.harness import LayerContext, reader
+
+    ctx = LayerContext(stages={"encode": {"count": 4, "total_s": 0.01}})
+    for m in ("orchestrate_ms.query", "classify_ms.query", "ce_ms.query",
+              "respond_ms.query", "coalesce_wait_ms.query",
+              "graph_wait_ms.query", "assemble_ms.search"):
+        assert reader(m)(ctx) is None, m
+
+
+def test_spans_reach_an_all_threads_trace_on_their_own_threads(
+        legal, monkeypatch, tmp_path):
+    """Under ``LEGAL_RAG_PROFILE``, a profiler started on all threads
+    holds the request's ranges on the pool worker that served it and the
+    search's on the coalescer's timer thread that dispatched it."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    monkeypatch.setenv("LEGAL_RAG_PROFILE", "1")
+    co = legal.engine._coalescer
+    dispatch = co._fn
+    threads = {}
+
+    def on_thread(*args, **kwargs):
+        threads["dispatch"] = (threading.get_native_id(),
+                               type(threading.current_thread()))
+        return dispatch(*args, **kwargs)
+
+    def serve():
+        threads["worker"] = threading.get_native_id()
+        return legal.query(QUERIES[1], k=5)
+
+    monkeypatch.setattr(co, "_fn", on_thread)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU],
+                experimental_config=_ExperimentalConfig(
+                    profile_all_threads=True)) as prof:
+            pool.submit(serve).result(timeout=60)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    tids = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            tids.setdefault(e["name"], set()).add(e["tid"])
+    worker = threads["worker"]
+    timer_thread, kind = threads["dispatch"]
+    assert kind is threading.Timer and timer_thread != worker
+    assert worker in tids["request"] and worker in tids["classify"]
+    assert timer_thread in tids["device_search"]
+
+
+# -- on the card -----------------------------------------------------------
+
+@pytest.mark.gpu
+def test_graph_wait_is_inside_the_spans_that_replay(monkeypatch, tmp_path):
+    """On the card every replay of the search, the encoder and the
+    cross-encoder waits for the graph set's lock inside its own span:
+    one ``graph_wait`` a span, each range within one of theirs on the
+    same thread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph set and its lock exist "
+                    "only there")
+    from torch._C._profiler import _ExperimentalConfig
+
+    legal = _legal_engine("cuda")
+    assert legal.engine.graphs.timer is legal.timer
+    for q in QUERIES:
+        legal.query(q, k=5)             # captured
+    monkeypatch.setenv("LEGAL_RAG_PROFILE", "1")
+    legal.timer.reset()
+    # the searches run on the coalescer's timer threads
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            experimental_config=_ExperimentalConfig(
+                profile_all_threads=True)) as prof:
+        for q in QUERIES:
+            legal.query(q, k=5)
+    count = {n: st["count"] for n, st in legal.timer.snapshot().items()}
+    assert count["graph_wait"] == \
+        count["encode"] + count["device_search"] + count["ce"]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"], e["tid"])
+              for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    waits = [r for r in ranges if r[2] == "graph_wait"]
+    assert len(waits) == count["graph_wait"]
+    outer = [r for r in ranges if r[2] in ("encode", "device_search", "ce")]
+    for a, b, _, tid in waits:
+        assert any(oa <= a and b <= ob and ot == tid
+                   for oa, ob, _, ot in outer), (a, b)

@@ -1,14 +1,15 @@
 """``legal_rag_tpu_torch.utils.timing`` on its own: the stage timer's
-counts and means, its lock under concurrent stages, the profiler range
-each stage emits under ``LEGAL_RAG_PROFILE``, and ``device_trace``'s
-Chrome trace, all on the CPU with torch's profiler (never jax's)."""
+counts and means, intervals recorded with ``add``, its lock under
+concurrent stages and the profiler range each stage emits under
+``LEGAL_RAG_PROFILE``, all on the CPU with torch's profiler (never
+jax's)."""
 
 import threading
 
 import pytest
 import torch
 
-from legal_rag_tpu_torch.utils.timing import StageTimer, device_trace
+from legal_rag_tpu_torch.utils.timing import StageTimer
 
 
 def test_stage_timer_counts_and_means():
@@ -27,6 +28,24 @@ def test_stage_timer_counts_and_means():
         assert v["mean_ms"] == pytest.approx(1e3 * v["total_s"] / v["count"])
     timer.reset()
     assert timer.snapshot() == {}
+
+
+def test_add_counts_and_totals_like_stage():
+    """An interval recorded with ``add`` lands in the same count, total,
+    mean and last value as a ``with`` stage of the same name."""
+    timer = StageTimer()
+    with timer.stage("coalesce_wait"):
+        pass
+    staged = timer.snapshot()["coalesce_wait"]
+    timer.add("coalesce_wait", 0.25)
+    timer.add("coalesce_wait", 0.5)
+    snap = timer.snapshot()["coalesce_wait"]
+    assert snap["count"] == 3
+    assert snap["total_s"] == pytest.approx(staged["total_s"] + 0.75)
+    assert snap["mean_ms"] == pytest.approx(1e3 * snap["total_s"] / 3)
+    assert snap["last_ms"] == pytest.approx(500.0)
+    timer.add("graph_wait", 0.0)
+    assert timer.snapshot()["graph_wait"]["count"] == 1
 
 
 def test_stage_timer_loses_no_update_across_threads():
@@ -57,10 +76,3 @@ def test_profiled_stage_is_a_named_torch_profiler_range(monkeypatch):
     names = {e.key for e in prof.key_averages()}
     assert "rerank_stage" in names
     assert timer.snapshot()["rerank_stage"]["count"] == 1
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with device_trace(str(tmp_path)):
-        torch.ones(32, 32) @ torch.ones(32, 32)
-    traces = list(tmp_path.glob("*.pt.trace.json"))
-    assert len(traces) == 1 and traces[0].stat().st_size > 0
