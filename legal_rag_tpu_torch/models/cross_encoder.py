@@ -20,6 +20,7 @@ numpy-initialized head.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,7 +64,15 @@ class CrossEncoder:
     trunk. ``params`` (the attribute) reads the current weights back as
     that pytree, so a trained cross-encoder saves as the JAX one does.
     ``timer``: where ``score_pairs`` is timed as the stage ``ce`` (a
-    serving engine's ``StageTimer``; else one of its own).
+    serving engine's ``StageTimer``; else one of its own), its pair
+    encoding inside it as ``ce_tokenize``.
+
+    ``score_pairs`` encodes its pairs with the implementation the
+    encoder's tokenizer pinned (``pair_encoder_impl``): where that is the
+    C++ one, ``NativeWordPiece.encode_pairs`` in one call that holds no
+    GIL; else ``encode_pairs`` on the Python tokenizer. The two give the
+    same rows wherever the tokenizers agree. ``pair_encodes`` counts the
+    calls by implementation.
     """
 
     def __init__(
@@ -73,6 +82,13 @@ class CrossEncoder:
         self.cfg = encoder.cfg
         self.timer = timer if timer is not None else StageTimer()
         self.tokenizer = encoder.tokenizer
+        self.pair_encoder_impl = encoder.tokenizer_impl
+        self._native_pairs = (
+            encoder.fast_tokenizer.encode_pairs
+            if self.pair_encoder_impl == "native-cpp" else None
+        )
+        self.pair_encodes = {"native-cpp": 0, "python": 0}
+        self._count_lock = threading.Lock()
         self.device = encoder.device
         # the encoder's captured programs (a serving engine's), if any:
         # score_pairs replays one graph per [rows, L] pair batch
@@ -156,7 +172,11 @@ class CrossEncoder:
     def score_pairs(
         self, queries: Sequence[str], docs: Sequence[str]
     ) -> np.ndarray:
-        ids, mask, tt = self.encode_pairs(queries, docs)
+        encode = self._native_pairs or self.encode_pairs
+        with self.timer.stage("ce_tokenize"):
+            ids, mask, tt = encode(queries, docs, min(self.cfg.max_len, 256))
+        with self._count_lock:
+            self.pair_encodes[self.pair_encoder_impl] += 1
         (scores,) = run_program(
             self.graphs, ("cross_encode", *ids.shape), self._forward,
             {"ids": ids, "mask": mask, "tt": tt}, self.device)

@@ -5,7 +5,9 @@ The counterpart of ``legal_rag_tpu/native_ext.py``: ``NativeWordPiece``
 ``native_available`` and ``build_native``. The source is the port's own
 copy, ``legal_rag_tpu_torch/native/`` (``wordpiece.cpp``,
 ``unicode_tables.h`` and the tables' generator, verbatim copies of the
-JAX package's). ``g++ -O2 -std=c++17 -fPIC -shared`` compiles it on
+JAX package's, and the port's own ``wordpiece_pairs.cpp``, the
+cross-encoder's pair encoding on top of ``wp_encode``). ``g++ -O2
+-std=c++17 -fPIC -shared`` compiles both sources into one library on
 first use, never at import, into ``build/torch_native/wordpiece-<hash>/``
 at the repository root, keyed by a hash of the sources and the flags, as
 ``utils/cuda_build.py`` builds the kernels: under a lock (threads and
@@ -24,13 +26,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_native"
-SOURCES = ("wordpiece.cpp", "unicode_tables.h")
+SOURCES = ("wordpiece.cpp", "wordpiece_pairs.cpp", "unicode_tables.h")
+COMPILED = ("wordpiece.cpp", "wordpiece_pairs.cpp")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -65,7 +68,7 @@ def build_native(force: bool = False) -> bool:
                 return True
             tmp = out_dir / f".libwordpiece.{os.getpid()}.so"
             cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
-                   str(NATIVE_DIR / "wordpiece.cpp")]
+                   *(str(NATIVE_DIR / name) for name in COMPILED)]
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True,
                                       timeout=300)
@@ -103,6 +106,13 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.wp_encode_pairs.restype = ctypes.c_int32
+    lib.wp_encode_pairs.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
     ]
     _lib = lib
     return _lib
@@ -156,6 +166,31 @@ class NativeWordPiece:
 
         encoded = [self.encode(t, max_len=max_len) for t in texts]
         return pad_and_bucket(encoded, max_len, self.pad_id)
+
+    def encode_pairs(
+        self, queries: Sequence[str], docs: Sequence[str], max_len: int,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``CrossEncoder.encode_pairs``'s ``[B, L]`` ids, mask and
+        segment ids of ``zip(queries, docs)``, in one C++ call
+        (``native/wordpiece_pairs.cpp``) without the GIL; a query equal
+        to the previous pair's is tokenized once."""
+        if max_len < 1:
+            raise ValueError(f"max_len must be positive, got {max_len}")
+        texts = [t.encode("utf-8") for pair in zip(queries, docs)
+                 for t in pair]
+        n = len(texts) // 2
+        offsets = np.zeros(len(texts) + 1, dtype=np.int64)
+        np.cumsum([len(t) for t in texts], out=offsets[1:])
+        out = np.empty((3, n * max_len), dtype=np.int32)
+        ptr = ctypes.POINTER(ctypes.c_int32)
+        width = self._lib.wp_encode_pairs(
+            self._handle, b"".join(texts),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            n, max_len, self.pad_id,
+            *(row.ctypes.data_as(ptr) for row in out),
+        )
+        ids, mask, tt = (row[:n * width].reshape(n, width) for row in out)
+        return ids, mask, tt
 
 
 def native_available() -> bool:

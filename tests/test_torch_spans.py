@@ -1,7 +1,7 @@
 """The served path's spans on the engine's one ``StageTimer``: the
 request, the classifier, each search as its caller waits for it, the
-coalescer's queue wait, result assembly, the cross-encoder and the
-responder, on a small CPU ``LegalEngine`` with rerank and coalescing on;
+coalescer's queue wait, result assembly, the cross-encoder with its
+pair encoding nested in it, and the responder, on a small CPU ``LegalEngine`` with rerank and coalescing on;
 the benchmark's reader of the orchestration's self time; the ranges an
 all-threads profiler finds on the threads that did the work; and, on
 the card, the wait for the graph set's lock inside the spans that
@@ -27,7 +27,8 @@ QUERIES = [
 ]
 
 REQUEST_SPANS = {"request", "classify", "search", "coalesce_wait", "encode",
-                 "postings", "device_search", "assemble", "ce", "respond"}
+                 "postings", "device_search", "assemble", "ce", "ce_tokenize",
+                 "respond"}
 
 
 def _legal_engine(device):
@@ -100,7 +101,7 @@ def test_query_leaves_every_span_on_the_engine_timer(legal):
         assert "graph_wait" not in snap      # no graph set on the CPU
         count = {name: st["count"] for name, st in snap.items()}
         assert count["request"] == count["classify"] == count["ce"] == \
-            count["respond"] == 1
+            count["ce_tokenize"] == count["respond"] == 1
         # one search at a time: each call its own dispatch
         n = legal.engine.device_dispatches - dispatches
         assert count["search"] == count["coalesce_wait"] == n
@@ -109,6 +110,7 @@ def test_query_leaves_every_span_on_the_engine_timer(legal):
         inside = sum(snap[name]["total_s"]
                      for name in ("classify", "search", "ce", "respond"))
         assert inside <= snap["request"]["total_s"]
+        assert snap["ce_tokenize"]["total_s"] <= snap["ce"]["total_s"]
         assert snap["search"]["total_s"] >= snap["coalesce_wait"]["total_s"]
 
 
@@ -130,7 +132,7 @@ def _readings(legal):
     ctx = LayerContext(stages=legal.timer.snapshot())
     return {m: reader(m)(ctx) for m in (
         "orchestrate_ms.query", "classify_ms.query", "ce_ms.query",
-        "respond_ms.query", "coalesce_wait_ms.query")}
+        "ce_tokenize_ms.query", "respond_ms.query", "coalesce_wait_ms.query")}
 
 
 def test_orchestrate_ms_is_the_request_self_time(legal, monkeypatch):
@@ -151,7 +153,32 @@ def test_orchestrate_ms_is_the_request_self_time(legal, monkeypatch):
     after = _readings(legal)
     rise = after["orchestrate_ms.query"] - before["orchestrate_ms.query"]
     assert 0.9 * 1e3 * sleep_s <= rise <= 1.5 * 1e3 * sleep_s
-    for m in ("classify_ms.query", "ce_ms.query", "respond_ms.query"):
+    for m in ("classify_ms.query", "ce_ms.query", "ce_tokenize_ms.query",
+              "respond_ms.query"):
+        assert abs(after[m] - before[m]) < 0.25 * 1e3 * sleep_s, m
+
+
+def test_ce_tokenize_nests_in_ce(legal, monkeypatch):
+    """A sleep planted in the pair encoding raises ``ce_tokenize_ms`` by
+    about the sleep (one call a request), lies inside ``ce``, and leaves
+    ``orchestrate_ms.query``, which subtracts ``ce``, where it was."""
+    before = _readings(legal)
+    sleep_s = 0.5
+    ce = legal.orchestrator.reranker
+    assert ce.pair_encoder_impl == "python"
+    encode = ce.encode_pairs
+
+    def slow(*args, **kwargs):
+        time.sleep(sleep_s)
+        return encode(*args, **kwargs)
+
+    monkeypatch.setattr(ce, "encode_pairs", slow)
+    after = _readings(legal)
+    rise = after["ce_tokenize_ms.query"] - before["ce_tokenize_ms.query"]
+    assert 0.9 * 1e3 * sleep_s <= rise <= 1.5 * 1e3 * sleep_s
+    assert after["ce_ms.query"] >= after["ce_tokenize_ms.query"]
+    for m in ("orchestrate_ms.query", "classify_ms.query",
+              "respond_ms.query"):
         assert abs(after[m] - before[m]) < 0.25 * 1e3 * sleep_s, m
 
 
@@ -160,7 +187,8 @@ def test_readers_of_a_program_without_the_spans_read_nothing():
 
     ctx = LayerContext(stages={"encode": {"count": 4, "total_s": 0.01}})
     for m in ("orchestrate_ms.query", "classify_ms.query", "ce_ms.query",
-              "respond_ms.query", "coalesce_wait_ms.query",
+              "ce_tokenize_ms.query", "respond_ms.query",
+              "coalesce_wait_ms.query",
               "graph_wait_ms.query", "assemble_ms.search"):
         assert reader(m)(ctx) is None, m
 
@@ -205,6 +233,15 @@ def test_spans_reach_an_all_threads_trace_on_their_own_threads(
     assert kind is threading.Timer and timer_thread != worker
     assert worker in tids["request"] and worker in tids["classify"]
     assert timer_thread in tids["device_search"]
+    # the pair encoding: one range, inside the request's one ce range
+    ranges = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("ph") == "X" and e.get("name") == name
+                     and e.get("cat") == "user_annotation"
+                     and e["tid"] == worker]
+              for name in ("ce", "ce_tokenize")}
+    assert len(ranges["ce"]) == len(ranges["ce_tokenize"]) == 1
+    (ce_a, ce_b), (tok_a, tok_b) = ranges["ce"][0], ranges["ce_tokenize"][0]
+    assert ce_a <= tok_a and tok_b <= ce_b
 
 
 # -- on the card -----------------------------------------------------------
