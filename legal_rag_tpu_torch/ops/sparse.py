@@ -225,9 +225,22 @@ def build_bm25(
     )
 
 
-# the fixed-point scatter's fraction bits: a posting's weight is kept
-# to 2**-32 (2.3e-10), far below fp32's step at a BM25 total of ~1
+# the fixed-point sums' fraction bits: a posting's weight is kept to
+# 2**-32 (2.3e-10), far below fp32's step at a BM25 total of ~1
 FIXED_POINT_BITS = 32
+
+
+def to_fixed_point(w: torch.Tensor) -> torch.Tensor:
+    """Weights as int64 multiples of ``2**-FIXED_POINT_BITS``, cut toward
+    zero (scaling by a power of two is exact in fp32). Magnitudes must
+    stay below ``2**31``."""
+    return (w.float() * 2.0 ** FIXED_POINT_BITS).long()
+
+
+def from_fixed_point(total: torch.Tensor) -> torch.Tensor:
+    """An int64 fixed-point total as fp32: the conversion is its one
+    rounding, the scaling back exact."""
+    return total.float() * 2.0 ** -FIXED_POINT_BITS
 
 
 def bm25_score_batch(
@@ -252,13 +265,10 @@ def bm25_score_batch(
     post_ids = torch.where(
         (post_ids >= 0) & (post_ids < n_docs), post_ids, n_docs
     )
-    # scaling by a power of two is exact in fp32, and so is the int64
-    # to fp32 conversion's one rounding of the total
-    fixed = (post_w.float() * 2.0 ** FIXED_POINT_BITS).long()
     acc = torch.zeros((q, n_docs + 1), dtype=torch.int64,
                       device=post_w.device)
-    acc.scatter_add_(1, post_ids, fixed)
-    return acc[:, :n_docs].float() * 2.0 ** -FIXED_POINT_BITS
+    acc.scatter_add_(1, post_ids, to_fixed_point(post_w))
+    return from_fixed_point(acc[:, :n_docs])
 
 
 def bm25_gather_postings_device(

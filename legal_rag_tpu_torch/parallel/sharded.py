@@ -60,7 +60,9 @@ from legal_rag_tpu_torch.ops.dense import (
 )
 from legal_rag_tpu_torch.ops.fusion import rrf_fusion
 from legal_rag_tpu_torch.ops.maxsim import maxsim_rescore, maxsim_topk
-from legal_rag_tpu_torch.ops.sparse import bm25_score_batch
+from legal_rag_tpu_torch.ops.sparse import (
+    bm25_score_batch, from_fixed_point, to_fixed_point,
+)
 from legal_rag_tpu_torch.parallel.mesh import (
     AXIS, GlobalArray, Mesh, as_global, device_put_global, gather_items,
     make_mesh, max_items, positions_along, replicate_global,
@@ -184,15 +186,21 @@ def _bm25_segment_stats(pids: torch.Tensor, pw: torch.Tensor, n_docs: int):
 
     Sorts postings by doc id and segment-sums by cumsum differences;
     the previous segment's end is found by a cummax over end POSITIONS,
-    so totals are right for any weight sign. Returns
+    so totals are right for any weight sign. The sums are taken in the
+    scatter path's 64-bit fixed point (``ops.sparse.to_fixed_point``):
+    an integer prefix's differences are exact however large the prefix
+    grows, so each total is its own postings' sum, rounded once to fp32,
+    equal bit for bit to :func:`bm25_score_batch`'s at any N. Headroom:
+    a prefix is at most P postings times BM25's largest weight
+    ``idf * (k1 + 1)``, about 35 at 1M docs, so about 4.6e6 at the
+    2**17 postings cap, far below the fixed point's 2**31. Returns
     ``(sid, valid, totals, global_max)``: sorted ids [Q, P], the mask of
     each doc's last posting, the doc totals at those positions, and the
     per-query max total (0 when no posting is valid).
     """
     q, p = pids.shape
     sid, order = torch.sort(pids.long(), dim=1, stable=True)
-    sw = torch.gather(pw.float(), 1, order)
-    cs = torch.cumsum(sw, dim=1)
+    cs = torch.cumsum(to_fixed_point(torch.gather(pw, 1, order)), dim=1)
     nxt = torch.cat([sid[:, 1:], sid.new_full((q, 1), -2)], dim=1)
     is_end = sid != nxt
     pos = torch.arange(p, device=sid.device).expand(q, p)
@@ -205,9 +213,9 @@ def _bm25_segment_stats(pids: torch.Tensor, pw: torch.Tensor, n_docs: int):
     prev_end = torch.where(
         last_end >= 0,
         torch.gather(cs, 1, last_end.clamp(min=0)),
-        0.0,
+        0,
     )
-    totals = cs - prev_end
+    totals = from_fixed_point(cs - prev_end)
     valid = is_end & (sid >= 0) & (sid < n_docs)
     masked = torch.where(valid, totals, _NEG_INF)
     global_max = masked.max(dim=1).values

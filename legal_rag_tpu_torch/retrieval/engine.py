@@ -30,7 +30,8 @@ and the benchmark read it): ``search`` around each ``search_batch`` call
 as its caller waits for it, ``coalesce_wait`` (each coalesced call's
 queue wait), ``encode``, ``postings``, ``device_search``,
 ``int8_rescore`` and ``assemble`` in a dispatch, ``graph_wait`` (the
-graph set's lock) inside the spans that replay; the facade adds
+graph set's lock) and ``graph_fill`` (the inputs' staging) inside the
+spans that replay; the facade adds
 ``request``, ``classify``, ``ce`` and ``respond``.
 
 The late-interaction modes run over the store's token slab

@@ -108,7 +108,8 @@ class GraphSet:
     where it is rather than inside the capture (process-wide: for
     single-threaded checks, not for a server). ``timer`` (the engine's,
     else one of the set's own) times the wait for the lock as
-    ``graph_wait``, inside the caller's span."""
+    ``graph_wait`` and the staging of the inputs as ``graph_fill``, each
+    once a run, inside the caller's span."""
 
     def __init__(self, device="cuda", check_syncs: bool = False,
                  timer: Optional[StageTimer] = None) -> None:
@@ -201,14 +202,15 @@ class GraphSet:
         """Every static input overwritten whole: host array -> pinned
         staging -> device, on the current stream. The lock is held until
         the outputs are on the host, so the staging is not reused while
-        a copy from it may be in flight."""
-        for name, a in inputs.items():
-            a = np.asarray(a)
-            staging = self._staging[(name, a.shape, a.dtype.str)]
-            # torch's host copy runs on its thread pool (a 64-query
-            # postings batch at the 131,072 cap is 67 MB)
-            staging.copy_(torch.from_numpy(a))
-            bufs[name].copy_(staging, non_blocking=True)
+        a copy from it may be in flight. Timed as ``graph_fill``."""
+        with self.timer.stage("graph_fill"):
+            for name, a in inputs.items():
+                a = np.asarray(a)
+                staging = self._staging[(name, a.shape, a.dtype.str)]
+                # torch's host copy runs on its thread pool (a 64-query
+                # postings batch at the 131,072 cap is 67 MB)
+                staging.copy_(torch.from_numpy(a))
+                bufs[name].copy_(staging, non_blocking=True)
 
     def _capture(self, key: Hashable, fn: Program,
                  inputs: Inputs) -> CapturedProgram:

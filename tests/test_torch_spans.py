@@ -4,8 +4,8 @@ coalescer's queue wait, result assembly, the cross-encoder with its
 pair encoding nested in it, and the responder, on a small CPU ``LegalEngine`` with rerank and coalescing on;
 the benchmark's reader of the orchestration's self time; the ranges an
 all-threads profiler finds on the threads that did the work; and, on
-the card, the wait for the graph set's lock inside the spans that
-replay."""
+the card, the wait for the graph set's lock and the staging of a
+program's inputs inside the spans that replay."""
 
 import json
 import threading
@@ -284,3 +284,44 @@ def test_graph_wait_is_inside_the_spans_that_replay(monkeypatch, tmp_path):
     for a, b, _, tid in waits:
         assert any(oa <= a and b <= ob and ot == tid
                    for oa, ob, _, ot in outer), (a, b)
+
+
+@pytest.mark.gpu
+def test_graph_fill_is_once_a_replay_inside_its_dispatch_span(monkeypatch,
+                                                              tmp_path):
+    """On the card each replay stages its inputs once, as ``graph_fill``
+    on the engine's timer, and under ``LEGAL_RAG_PROFILE`` the range
+    lies within the span that replays (``encode``, ``device_search`` or
+    ``ce``) on the same thread, after that replay's ``graph_wait``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph set stages inputs only "
+                    "there")
+    from torch._C._profiler import _ExperimentalConfig
+
+    legal = _legal_engine("cuda")
+    for q in QUERIES:
+        legal.query(q, k=5)             # captured
+    monkeypatch.setenv("LEGAL_RAG_PROFILE", "1")
+    legal.timer.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            experimental_config=_ExperimentalConfig(
+                profile_all_threads=True)) as prof:
+        for q in QUERIES:
+            legal.query(q, k=5)
+    count = {n: st["count"] for n, st in legal.timer.snapshot().items()}
+    replays = count["encode"] + count["device_search"] + count["ce"]
+    assert count["graph_fill"] == count["graph_wait"] == replays
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"], e["tid"])
+              for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    fills = [r for r in ranges if r[2] == "graph_fill"]
+    assert len(fills) == replays
+    outer = [r for r in ranges if r[2] in ("encode", "device_search", "ce")]
+    waits = [r for r in ranges if r[2] == "graph_wait"]
+    for a, b, _, tid in fills:
+        assert any(oa <= a and b <= ob and ot == tid
+                   for oa, ob, _, ot in outer), (a, b)
+        assert any(wb <= a and wt == tid for _, wb, _, wt in waits), (a, b)
