@@ -1,19 +1,22 @@
-"""ctypes binding of the C++ WordPiece tokenizer (host code, no card).
+"""ctypes binding of the C++ WordPiece tokenizer and the BM25 postings
+gather (host code, no card).
 
 The counterpart of ``legal_rag_tpu/native_ext.py``: ``NativeWordPiece``
 (the Python tokenizer's contract, ``models/wordpiece.py``),
-``native_available`` and ``build_native``. The source is the port's own
-copy, ``legal_rag_tpu_torch/native/`` (``wordpiece.cpp``,
-``unicode_tables.h`` and the tables' generator, verbatim copies of the
-JAX package's, and the port's own ``wordpiece_pairs.cpp``, the
-cross-encoder's pair encoding on top of ``wp_encode``). ``g++ -O2
--std=c++17 -fPIC -shared`` compiles both sources into one library on
-first use, never at import, into ``build/torch_native/wordpiece-<hash>/``
-at the repository root, keyed by a hash of the sources and the flags, as
-``utils/cuda_build.py`` builds the kernels: under a lock (threads and
-processes), under a private name and then renamed into place, with the
-compiler's log kept beside it, on failure too. Where nothing builds it,
-every caller tokenizes in Python, as in the JAX package.
+``native_available`` and ``build_native``; and the port's own
+``gather_postings``. The source is the port's own copy,
+``legal_rag_tpu_torch/native/`` (``wordpiece.cpp``, ``unicode_tables.h``
+and the tables' generator, verbatim copies of the JAX package's, the
+port's own ``wordpiece_pairs.cpp``, the cross-encoder's pair encoding on
+top of ``wp_encode``, and ``postings_gather.cpp``, a query batch's BM25
+postings). ``g++ -O2 -std=c++17 -fPIC -shared`` compiles the sources
+into one library on first use, never at import, into
+``build/torch_native/wordpiece-<hash>/`` at the repository root, keyed
+by a hash of the sources and the flags, as ``utils/cuda_build.py``
+builds the kernels: under a lock (threads and processes), under a
+private name and then renamed into place, with the compiler's log kept
+beside it, on failure too. Where nothing builds it, every caller
+tokenizes and gathers in Python, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ import numpy as np
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_native"
-SOURCES = ("wordpiece.cpp", "wordpiece_pairs.cpp", "unicode_tables.h")
-COMPILED = ("wordpiece.cpp", "wordpiece_pairs.cpp")
+SOURCES = ("wordpiece.cpp", "wordpiece_pairs.cpp", "postings_gather.cpp",
+           "unicode_tables.h")
+COMPILED = ("wordpiece.cpp", "wordpiece_pairs.cpp", "postings_gather.cpp")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -113,6 +117,12 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32),
+    ]
+    ptr = ctypes.c_void_p     # numpy buffers, checked by gather_postings
+    lib.bm25_gather_postings.restype = ctypes.c_int32
+    lib.bm25_gather_postings.argtypes = [
+        ptr, ptr, ptr, ctypes.c_int64, ptr, ptr, ptr, ctypes.c_int32,
+        ctypes.c_int64, ptr, ptr, ptr, ptr, ptr, ptr,
     ]
     _lib = lib
     return _lib
@@ -195,3 +205,53 @@ class NativeWordPiece:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def gather_postings(
+    terms: np.ndarray, mult: np.ndarray, term_offsets: np.ndarray,
+    indptr: np.ndarray, doc_ids: np.ndarray, weights: np.ndarray,
+    n_docs: int, budget: int, spill_offsets: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A query batch's postings in one C++ call without the GIL
+    (``native/postings_gather.cpp``): query ``q``'s distinct terms
+    ``terms[term_offsets[q]:term_offsets[q + 1]]`` (int64) with their
+    multiplicities ``mult`` (float32), over the CSR ``indptr`` (int64),
+    ``doc_ids`` (int32) and ``weights`` (float32). Returns ``(ids [Q,
+    budget] int32, weights [Q, budget] float32, totals [Q] int64,
+    spill_ids, spill_w)``: a row whose total passes ``budget`` is left
+    unwritten, its postings flat in the spill arrays at
+    ``spill_offsets[q]:spill_offsets[q + 1]``, which must hold its
+    total. Raises RuntimeError if the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    q = len(term_offsets) - 1
+    terms = np.ascontiguousarray(terms, np.int64)
+    mult = np.ascontiguousarray(mult, np.float32)
+    term_offsets = np.ascontiguousarray(term_offsets, np.int64)
+    spill_offsets = np.ascontiguousarray(spill_offsets, np.int64)
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    doc_ids = np.ascontiguousarray(doc_ids, np.int32)
+    weights = np.ascontiguousarray(weights, np.float32)
+    if (q < 0 or len(spill_offsets) != q + 1 or len(mult) != len(terms)
+            or term_offsets[0] != 0 or term_offsets[-1] != len(terms)
+            or np.any(np.diff(term_offsets) < 0) or budget < 1
+            or len(doc_ids) != len(weights) or indptr[-1] > len(doc_ids)):
+        raise ValueError("inconsistent postings gather arguments")
+    if len(terms) and (terms.min() < 0 or terms.max() >= len(indptr) - 1):
+        raise ValueError("term id outside the index's vocabulary")
+    out_ids = np.empty((q, budget), np.int32)
+    out_w = np.empty((q, budget), np.float32)
+    totals = np.empty(q, np.int64)
+    spill_ids = np.empty(int(spill_offsets[-1]), np.int32)
+    spill_w = np.empty(int(spill_offsets[-1]), np.float32)
+    rc = lib.bm25_gather_postings(
+        terms.ctypes.data, mult.ctypes.data, term_offsets.ctypes.data, q,
+        indptr.ctypes.data, doc_ids.ctypes.data, weights.ctypes.data,
+        n_docs, budget, out_ids.ctypes.data, out_w.ctypes.data,
+        totals.ctypes.data, spill_offsets.ctypes.data, spill_ids.ctypes.data,
+        spill_w.ctypes.data,
+    )
+    if rc != 0:
+        raise ValueError("spill_offsets do not hold the over-budget totals")
+    return out_ids, out_w, totals, spill_ids, spill_w

@@ -2,7 +2,9 @@
 
 The host side (``tokenize``, :class:`BM25Index`, :func:`build_bm25`) is
 the JAX package's code verbatim: the index is plain numpy and the
-serving path gathers postings on the host. The device side:
+serving path gathers postings on the host, through
+:func:`gather_postings_batch`, the port's own: the verbatim budget and
+gather bit for bit, in one C++ call a batch. The device side:
 
 - :func:`bm25_gather_postings_device`, the ``[Q, P]`` postings batch
   built on the device from postings resident there and the host's
@@ -18,11 +20,13 @@ serving path gathers postings on the host. The device side:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from collections import Counter
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from legal_rag_tpu_torch import native_ext
 from legal_rag_tpu_torch.ops.dense import lax_top_k
 
 
@@ -223,6 +227,73 @@ def build_bm25(
         b=b,
         epsilon=epsilon,
     )
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+class GatheredPostings(NamedTuple):
+    budget: int
+    ids: np.ndarray           # [Q, budget] int32, padded with n_docs
+    weights: np.ndarray       # [Q, budget] float32, padded with 0
+    impl: str                 # "native-cpp" or "python"
+    truncated: int            # queries cut at the budget (native path)
+
+
+def gather_postings_batch(
+    index: BM25Index, queries: Sequence[str], cap: Optional[int] = None,
+    lo: int = 8,
+) -> GatheredPostings:
+    """The served search's postings: the budget of
+    ``_pad_pow2(index.postings_budget(queries, cap), lo)`` and
+    ``index.gather_postings(queries, budget)``, equal to them bit for
+    bit, with each query tokenized once and the whole batch gathered in
+    one GIL-free C++ call (``native_ext.gather_postings``). A query past
+    the budget is cut as the verbatim code cuts it, by
+    ``np.argpartition`` on the same float32 weights, so ties at the cut
+    fall the same way. Where the native library does not build, it runs
+    those two methods (``impl`` "python", ``truncated`` 0: that path
+    does not report its cuts)."""
+    if not native_ext.native_available():
+        budget = _pow2_at_least(max(index.postings_budget(queries, cap), lo))
+        ids, w = index.gather_postings(queries, budget)
+        return GatheredPostings(budget, ids, w, "python", 0)
+    terms: List[int] = []
+    mult: List[int] = []
+    offsets = [0]
+    for query in queries:
+        # dict order: the terms in first appearance, as gather_postings
+        counts = Counter(index.query_term_ids(query))
+        terms.extend(counts)
+        mult.extend(counts.values())
+        offsets.append(len(terms))
+    terms_a = np.array(terms, np.int64)
+    offsets_a = np.array(offsets, np.int64)
+    lens = index.indptr[terms_a + 1] - index.indptr[terms_a]
+    ends = np.zeros(len(terms) + 1, np.int64)
+    np.cumsum(lens, out=ends[1:])
+    totals = ends[offsets_a[1:]] - ends[offsets_a[:-1]]
+    # postings_budget's rule: the worst total (at least 1) to a power of
+    # two, under the cap's power of two; then the engine's floor of lo
+    budget = _pow2_at_least(max(1, int(totals.max(initial=0))))
+    if cap is not None:
+        budget = min(budget, _pow2_at_least(cap))
+    budget = _pow2_at_least(max(budget, lo))
+    over = np.flatnonzero(totals > budget)
+    spill = np.zeros(len(queries) + 1, np.int64)
+    spill[over + 1] = totals[over]
+    np.cumsum(spill, out=spill)
+    ids, w, _, spill_ids, spill_w = native_ext.gather_postings(
+        terms_a, np.array(mult, np.float32), offsets_a, index.indptr,
+        index.doc_ids, index.weights, index.n_docs, budget, spill)
+    for qi in over:
+        s, e = spill[qi], spill[qi + 1]
+        flat_w = spill_w[s:e]
+        keep = np.argpartition(-flat_w, budget - 1)[:budget]
+        ids[qi] = spill_ids[s:e][keep]
+        w[qi] = flat_w[keep]
+    return GatheredPostings(budget, ids, w, "native-cpp", len(over))
 
 
 # the fixed-point sums' fraction bits: a posting's weight is kept to

@@ -25,6 +25,12 @@ cross-encoder's. It exists when every mesh position sits on the
 engine's card in this process (S=1, or shards repeating that card);
 on the CPU, or a mesh over several cards, the programs run op by op.
 
+A dispatch gathers its BM25 postings on the host through
+:func:`legal_rag_tpu_torch.ops.sparse.gather_postings_batch`, one C++
+call a batch where the native library builds (``postings_gathers``
+counts the calls by implementation, ``postings_truncated`` the queries
+cut at the budget).
+
 The engine's ``timer`` is the served path's one ``StageTimer`` (``/health``
 and the benchmark read it): ``search`` around each ``search_batch`` call
 as its caller waits for it, ``coalesce_wait`` (each coalesced call's
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -59,6 +66,7 @@ from legal_rag_tpu_torch.ops.dense import exact_rescore
 from legal_rag_tpu_torch.ops.maxsim import (
     minilm_token_and_pooled, scan_block_n,
 )
+from legal_rag_tpu_torch.ops.sparse import gather_postings_batch
 from legal_rag_tpu_torch.parallel.mesh import make_mesh
 from legal_rag_tpu_torch.parallel.sharded import (
     ShardedIndex, ShardedMultiVectorIndex, sharded_hybrid_search,
@@ -110,6 +118,11 @@ class RetrievalEngine:
         self.config = config
         self.device = torch.device(device)
         self.timer = StageTimer()
+        # the served search's host postings gathers by implementation,
+        # and the queries they cut at the budget (the native path's)
+        self.postings_gathers = {"native-cpp": 0, "python": 0}
+        self.postings_truncated = 0
+        self._count_lock = threading.Lock()
         if encoder is None:
             enc_cfg = config.encoder
             # the store records the encoder that built its embeddings;
@@ -293,12 +306,12 @@ class RetrievalEngine:
         if self.index.pq_rotation is not None:
             q_dev = np.asarray(q_emb, np.float32) @ self.index.pq_rotation
         with self.timer.stage("postings"):
-            budget = _pad_pow2(
-                self.store.bm25.postings_budget(
-                    queries, cap=cfg.bm25.postings_budget_cap
-                )
+            budget, post_ids, post_w, impl, truncated = gather_postings_batch(
+                self.store.bm25, queries, cap=cfg.bm25.postings_budget_cap
             )
-            post_ids, post_w = self.store.bm25.gather_postings(queries, budget)
+        with self._count_lock:
+            self.postings_gathers[impl] += 1
+            self.postings_truncated += truncated
         with self.timer.stage("device_search"):
             c = max(cfg.fusion.candidate_multiplier * k_dev, k_dev)
             idx = self.index

@@ -207,8 +207,8 @@ print("\\n".join(seen))
 def test_library_lies_under_build_and_reads_nothing_of_the_jax_package():
     """A forced rebuild and a load, in a process where jax and the JAX
     package cannot be imported: the library lies under ``build/`` (which
-    .gitignore lists), g++ compiles the port's copy and its pair
-    encoder, and no file under
+    .gitignore lists), g++ compiles the port's copy, its pair encoder
+    and the BM25 postings gather, and no file under
     ``legal_rag_tpu/`` is opened, loaded or handed to the compiler."""
     out = subprocess.run([sys.executable, "-c", _AUDIT], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -219,6 +219,7 @@ def test_library_lies_under_build_and_reads_nothing_of_the_jax_package():
     assert lib.is_file()
     assert lib.is_relative_to(REPO_ROOT / "build" / "torch_native")
     assert "build/" in (REPO_ROOT / ".gitignore").read_text().split()
+    assert "postings_gather.cpp" in native_ext.COMPILED
     for name in native_ext.COMPILED:
         assert any(f"legal_rag_tpu_torch/native/{name}" in s for s in seen)
     jax_pkg = str(REPO_ROOT / "legal_rag_tpu") + "/"

@@ -123,6 +123,39 @@ def test_search_batch_span_without_coalescing(legal, monkeypatch):
     assert "coalesce_wait" not in snap
 
 
+def test_postings_span_holds_tokenization_budget_and_gather(legal,
+                                                           monkeypatch):
+    """One ``postings`` entry a dispatch, and inside it the BM25
+    tokenization, the budget and the gather: sleeps planted in each
+    land in the span."""
+    from legal_rag_tpu_torch import native_ext
+    from legal_rag_tpu_torch.ops import sparse
+
+    monkeypatch.setattr(legal.engine, "_coalescer", None)
+    sleep_s = 0.02
+    slept = []
+
+    def slow(fn):
+        def wrapped(*args, **kwargs):
+            time.sleep(sleep_s)
+            slept.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for owner, name in ((sparse.BM25Index, "query_term_ids"),
+                        (sparse, "_pow2_at_least"),
+                        (sparse.BM25Index, "gather_postings"),
+                        (native_ext, "gather_postings")):
+        monkeypatch.setattr(owner, name, slow(getattr(owner, name)))
+    legal.timer.reset()
+    legal.engine.search_batch(QUERIES, k=3)
+    snap = legal.timer.snapshot()
+    assert snap["postings"]["count"] == 1
+    assert {"query_term_ids", "_pow2_at_least", "gather_postings"} <= \
+        set(slept)
+    assert snap["postings"]["total_s"] >= sleep_s * len(slept)
+
+
 def _readings(legal):
     from benchmark.harness import LayerContext, reader
 
