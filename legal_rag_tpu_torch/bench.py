@@ -169,6 +169,8 @@ def bench_inputs(store, queries):
     structure), the postings at a power-of-two budget of at least 64,
     and the fusion weights. Returns ``(q_emb, post_ids, post_w,
     weights, budget)``."""
+    from legal_rag_tpu_torch.ops.sparse import gather_postings_batch
+
     rng = np.random.default_rng(1)
     rows = rng.integers(0, store.n_docs, Q_BATCH)
     q_emb = store.embeddings[rows] + 0.05 * rng.standard_normal(
@@ -176,11 +178,9 @@ def bench_inputs(store, queries):
     ).astype(np.float32)
     q_emb /= np.linalg.norm(q_emb, axis=1, keepdims=True)
 
-    budget = max(64, store.bm25.postings_budget(queries))
-    budget = 1 << (budget - 1).bit_length()
-    post_ids, post_w = store.bm25.gather_postings(queries, budget)
+    post = gather_postings_batch(store.bm25, queries, lo=64)
     weights = np.full(Q_BATCH, WEIGHT, dtype=np.float32)
-    return q_emb, post_ids, post_w, weights, budget
+    return q_emb, post.ids, post.weights, weights, post.budget
 
 
 def exact_golden(store, q_emb, post_ids, post_w):

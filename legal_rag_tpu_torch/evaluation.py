@@ -221,15 +221,15 @@ def _bm25_ranked_ids(
 ) -> np.ndarray:
     """BM25-only ranking straight from the sparse ops, with the
     postings budget capped as serving caps it."""
-    from legal_rag_tpu_torch.ops.sparse import bm25_topk
+    from legal_rag_tpu_torch.ops.sparse import (
+        bm25_topk, gather_postings_batch,
+    )
 
-    budget = max(8, store.bm25.postings_budget(
-        queries, cap=config.bm25.postings_budget_cap
-    ))
-    budget = 1 << (budget - 1).bit_length()
-    pids, pw = store.bm25.gather_postings(queries, budget)
+    post = gather_postings_batch(store.bm25, queries,
+                                 cap=config.bm25.postings_budget_cap)
     _, ids = bm25_topk(
-        torch.from_numpy(pids).to(device), torch.from_numpy(pw).to(device),
+        torch.from_numpy(post.ids).to(device),
+        torch.from_numpy(post.weights).to(device),
         store.n_docs, min(k, store.n_docs),
     )
     return ids.cpu().numpy()

@@ -12,32 +12,31 @@ top of ``wp_encode``, and ``postings_gather.cpp``, a query batch's BM25
 postings). ``g++ -O2 -std=c++17 -fPIC -shared`` compiles the sources
 into one library on first use, never at import, into
 ``build/torch_native/wordpiece-<hash>/`` at the repository root, keyed
-by a hash of the sources and the flags, as ``utils/cuda_build.py``
-builds the kernels: under a lock (threads and processes), under a
-private name and then renamed into place, with the compiler's log kept
-beside it, on failure too. Where nothing builds it, every caller
-tokenizes and gathers in Python, as in the JAX package.
+by a hash of the sources and the flags, through the builder that builds
+the kernels (``utils/cuda_build.py build_shared_library``): one build at
+a time across threads and processes, under a private name and then
+renamed into place, with the compiler's log ``g++.log`` kept beside it,
+on failure too. Where nothing builds it, every caller tokenizes and
+gathers in Python, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-NATIVE_DIR = Path(__file__).resolve().parent / "native"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_native"
-SOURCES = ("wordpiece.cpp", "wordpiece_pairs.cpp", "postings_gather.cpp",
-           "unicode_tables.h")
+from legal_rag_tpu_torch.utils import cuda_build
+
+NATIVE_DIR = cuda_build.REPO_ROOT / "legal_rag_tpu_torch" / "native"
+BUILD_DIR = cuda_build.REPO_ROOT / "build" / "torch_native"
 COMPILED = ("wordpiece.cpp", "wordpiece_pairs.cpp", "postings_gather.cpp")
+HEADERS = ("unicode_tables.h",)
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -45,60 +44,57 @@ _lib_tried = False
 _lock = threading.Lock()
 
 
+def _paths(names: Sequence[str]) -> List[Path]:
+    return [NATIVE_DIR / name for name in names]
+
+
+def find_cxx() -> str:
+    """``$CXX`` (default ``g++``) on the ``PATH``."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler ($CXX or g++) on the PATH")
+    return cxx
+
+
 def library_path() -> Path:
     """Where the library of the current sources and flags lands."""
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update((NATIVE_DIR / name).read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"wordpiece-{h.hexdigest()[:16]}" / "libwordpiece.so"
+    return cuda_build.library_path("wordpiece", _paths(COMPILED + HEADERS),
+                                   CXX_FLAGS, BUILD_DIR)
 
 
 def build_native(force: bool = False) -> bool:
-    """Compile the library (or find it built); True on success. The
-    compiler's output lands in ``g++.log`` beside the library."""
-    lib = library_path()
-    out_dir = lib.parent
-    with _lock:
-        if lib.is_file() and not force:
-            return True
-        cxx = shutil.which(os.environ.get("CXX", "g++"))
-        if cxx is None:
-            return False
-        out_dir.mkdir(parents=True, exist_ok=True)
-        with open(out_dir / "lock", "w") as held:
-            fcntl.flock(held, fcntl.LOCK_EX)     # another process's build
-            if lib.is_file() and not force:
-                return True
-            tmp = out_dir / f".libwordpiece.{os.getpid()}.so"
-            cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
-                   *(str(NATIVE_DIR / name) for name in COMPILED)]
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True,
-                                      timeout=300)
-            except (subprocess.SubprocessError, OSError) as e:
-                (out_dir / "g++.log").write_text(f"{' '.join(cmd)}\n{e}\n")
-                return False
-            (out_dir / "g++.log").write_text(
-                f"{' '.join(cmd)}\nexit {proc.returncode}\n{proc.stderr}")
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                return False
-            os.replace(tmp, lib)
+    """Compile the library (or find it built); True on success, False
+    where no compiler is found or the build fails. The compiler's output
+    lands in ``g++.log`` beside the library."""
+    try:
+        cuda_build.build_shared_library(
+            "wordpiece", _paths(COMPILED), hashed=_paths(HEADERS),
+            compiler=find_cxx, flags=CXX_FLAGS, build_dir=BUILD_DIR,
+            log="g++.log", force=force)
+    except (RuntimeError, OSError):
+        return False
     return True
 
 
 def _load() -> Optional[ctypes.CDLL]:
+    """The library, built and loaded by the first call (other threads
+    wait for it); every later call returns that call's result, None
+    where it did not build or load."""
     global _lib, _lib_tried
     if _lib_tried:
         return _lib
-    _lib_tried = True
-    if not build_native():
-        return None
-    try:
-        lib = ctypes.CDLL(str(library_path()))
-    except OSError:
-        return None
+    with _lock:
+        if not _lib_tried:
+            try:
+                if build_native():
+                    _lib = _declare(ctypes.CDLL(str(library_path())))
+            except OSError:
+                pass
+            _lib_tried = True
+    return _lib
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.wp_create.restype = ctypes.c_void_p
     lib.wp_create.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32,
@@ -124,8 +120,7 @@ def _load() -> Optional[ctypes.CDLL]:
         ptr, ptr, ptr, ctypes.c_int64, ptr, ptr, ptr, ctypes.c_int32,
         ctypes.c_int64, ptr, ptr, ptr, ptr, ptr, ptr,
     ]
-    _lib = lib
-    return _lib
+    return lib
 
 
 class NativeWordPiece:

@@ -57,10 +57,6 @@ def row_argmax(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"row_argmax: empty input {tuple(x.shape)}")
     dev = x.get_device()
     out = torch.empty(rows, dtype=torch.int32, device=x.device)
-    err = P.library().argmax_probe_launch(x.data_ptr(), rows, cols,
-                                          out.data_ptr(), dev,
-                                          current_stream(dev))
-    if err != 0:
-        raise RuntimeError(f"argmax probe launch failed: CUDA error {err}")
-    P.count_launch()
+    P.launch("argmax_probe_launch", x.data_ptr(), rows, cols,
+             out.data_ptr(), dev, current_stream(dev))
     return out

@@ -229,14 +229,12 @@ def fused_topk(
                               device=device)
         p = scratch.data_ptr()
         bufs = [p, p + blk * 4, p + 2 * blk * 4, p + (2 * blk + mrg) * 4]
-    err = K3.library().fused_topk_launch(
+    K3.launch(
+        "fused_topk_launch",
         docs_t.data_ptr(), ld, n, queries.data_ptr(), q, d, k, limit,
         plan.query_tile, plan.cap, plan.n_splits, int(plan.stream_q),
         part_s, part_s + q * plan.n_splits * k * 4, *bufs,
         out_p, out_p + q * k * 4, _DTYPE_CODES[dtype], dev,
         current_stream(dev),
     )
-    if err != 0:
-        raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {err}")
-    K3.count_launch()
     return out_s, out_i

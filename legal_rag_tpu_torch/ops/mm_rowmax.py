@@ -96,14 +96,10 @@ def mm_rowmax(
     grid_x = min(n_tiles, _BLOCKS_PER_SM * sms)
     partial = torch.empty((q, n_tiles), dtype=torch.float32, device=dev)
     out = torch.empty((q, nb), dtype=torch.float32, device=dev)
-    lib = X2.library()
-    stream = current_stream(dev.index or 0)
-    err = lib.mm_rowmax_launch(
+    X2.launch(
+        "mm_rowmax_launch",
         queries.data_ptr(), q, d, docs_t.data_ptr(), docs_t.stride(0), n_pad,
         block_n, grid_x, partial.data_ptr(), out.data_ptr(), dev.index or 0,
-        stream,
+        current_stream(dev.index or 0),
     )
-    if err != 0:
-        raise RuntimeError(f"mm_rowmax kernel launch failed: CUDA error {err}")
-    X2.count_launch()
     return out

@@ -208,13 +208,11 @@ def _launch_tensor_cores(lut: torch.Tensor, codes: torch.Tensor,
     ptr = codes.data_ptr()
     vec = 16 if ptr % 16 == 0 else 8 if ptr % 8 == 0 else 4
     dev = codes.device.index or 0
-    err = K2.library().pq_segmax_launch(
+    K2.launch(
+        "pq_segmax_launch",
         ptr, lut.data_ptr(), out.data_ptr(), n, m, q, seg_rows,
         plan.query_tile, plan.stages, vec, dev, current_stream(dev),
     )
-    if err != 0:
-        raise RuntimeError(f"pq_segmax kernel launch failed: CUDA error {err}")
-    K2.count_launch()
     return out
 
 
@@ -227,11 +225,9 @@ def _launch_lookup(lut: torch.Tensor, codes: torch.Tensor,
     out = torch.empty((q, -(-n // seg_rows)), dtype=torch.float32,
                       device=codes.device)
     dev = codes.device.index or 0
-    err = K2.library().pq_segmax_lookup_launch(
+    K2.launch(
+        "pq_segmax_lookup_launch",
         codes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, m, q, seg_rows,
         lookup_tile(m, q, seg_rows), dev, current_stream(dev),
     )
-    if err != 0:
-        raise RuntimeError(f"pq_segmax kernel launch failed: CUDA error {err}")
-    K2.count_launch()
     return out

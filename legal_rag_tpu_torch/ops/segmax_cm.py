@@ -176,13 +176,11 @@ def segmax_cm(
     out = torch.empty((q, n_segs), dtype=torch.float32, device=docs_t.device)
     plan = launch_plan(docs_t.dtype, d, q)
     dev = docs_t.device.index or 0
-    err = K4.library().segmax_cm_launch(
+    K4.launch(
+        "segmax_cm_launch",
         docs_t.data_ptr(), docs_t.stride(0), queries.data_ptr(), q, d,
         out.data_ptr(), n_segs, seg_rows, max(0, min(int(n_valid), n)),
         _DTYPE_CODES[docs_t.dtype], plan.query_tile, int(plan.stream_q), dev,
         current_stream(dev),
     )
-    if err != 0:
-        raise RuntimeError(f"segmax_cm kernel launch failed: CUDA error {err}")
-    K4.count_launch()
     return out

@@ -253,16 +253,15 @@ def _launch_tensor_cores(queries: torch.Tensor, docs: torch.Tensor,
     plan = launch_plan(docs.dtype, d, q)
     row_bytes = d * docs.element_size()
     dev = docs.device.index or 0
-    err = K1.library().segmax_rm_tc_launch(
+    K1.launch(
+        "segmax_rm_tc_launch",
         docs.data_ptr(), queries.data_ptr(), out.data_ptr(), n, d, q,
         max(0, min(int(n_valid), n)), seg_rows, _DTYPE_CODES[docs.dtype],
         plan.query_tile, int(plan.stream_q),
         copy_width(row_bytes, docs.data_ptr()),
         copy_width(row_bytes, queries.data_ptr()), dev, current_stream(dev),
+        int8=docs.dtype == torch.int8, tensor_cores=True,
     )
-    if err != 0:
-        raise RuntimeError(f"segmax_rm kernel launch failed: CUDA error {err}")
-    K1.count_launch(int8=docs.dtype == torch.int8, tensor_cores=True)
     return out
 
 
@@ -276,12 +275,10 @@ def _launch_cuda_cores(queries: torch.Tensor, docs: torch.Tensor,
     q = queries.shape[0]
     out = _map(queries, docs, SEG_ROWS)
     dev = docs.device.index or 0
-    err = K1.library().segmax_rm_launch(
+    K1.launch(
+        "segmax_rm_launch",
         docs.data_ptr(), queries.data_ptr(), out.data_ptr(), n, d, q,
         max(0, min(int(n_valid), n)), _DTYPE_CODES[docs.dtype], dev,
-        current_stream(dev),
+        current_stream(dev), int8=docs.dtype == torch.int8,
     )
-    if err != 0:
-        raise RuntimeError(f"segmax_rm kernel launch failed: CUDA error {err}")
-    K1.count_launch(int8=docs.dtype == torch.int8)
     return out

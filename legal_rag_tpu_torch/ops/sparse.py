@@ -245,7 +245,7 @@ def gather_postings_batch(
     index: BM25Index, queries: Sequence[str], cap: Optional[int] = None,
     lo: int = 8,
 ) -> GatheredPostings:
-    """The served search's postings: the budget of
+    """A query batch's postings: the budget of
     ``_pad_pow2(index.postings_budget(queries, cap), lo)`` and
     ``index.gather_postings(queries, budget)``, equal to them bit for
     bit, with each query tokenized once and the whole batch gathered in
@@ -253,12 +253,8 @@ def gather_postings_batch(
     the budget is cut as the verbatim code cuts it, by
     ``np.argpartition`` on the same float32 weights, so ties at the cut
     fall the same way. Where the native library does not build, it runs
-    those two methods (``impl`` "python", ``truncated`` 0: that path
-    does not report its cuts)."""
-    if not native_ext.native_available():
-        budget = _pow2_at_least(max(index.postings_budget(queries, cap), lo))
-        ids, w = index.gather_postings(queries, budget)
-        return GatheredPostings(budget, ids, w, "python", 0)
+    ``index.gather_postings`` at that budget (``impl`` "python",
+    ``truncated`` 0: that path does not report its cuts)."""
     terms: List[int] = []
     mult: List[int] = []
     offsets = [0]
@@ -280,6 +276,9 @@ def gather_postings_batch(
     if cap is not None:
         budget = min(budget, _pow2_at_least(cap))
     budget = _pow2_at_least(max(budget, lo))
+    if not native_ext.native_available():
+        ids, w = index.gather_postings(queries, budget)
+        return GatheredPostings(budget, ids, w, "python", 0)
     over = np.flatnonzero(totals > budget)
     spill = np.zeros(len(queries) + 1, np.int64)
     spill[over + 1] = totals[over]

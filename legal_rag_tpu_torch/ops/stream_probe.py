@@ -84,14 +84,10 @@ def stream_probe(
     partial = torch.empty(nb * splits, dtype=torch.float32, device=dev)
     block_max = torch.empty(nb, dtype=torch.float32, device=dev)
     total = torch.empty((), dtype=torch.float32, device=dev)
-    lib = X1.library()
-    stream = current_stream(dev.index or 0)
-    err = lib.stream_probe_launch(
+    X1.launch(
+        "stream_probe_launch",
         docs_t.data_ptr(), docs_t.stride(0), d, docs_t.shape[1], block_n,
         splits, partial.data_ptr(), block_max.data_ptr(), total.data_ptr(),
-        dev.index or 0, stream,
+        dev.index or 0, current_stream(dev.index or 0),
     )
-    if err != 0:
-        raise RuntimeError(f"stream_probe kernel launch failed: CUDA error {err}")
-    X1.count_launch()
     return block_max, total

@@ -1,20 +1,24 @@
-"""Build the port's hand-written CUDA kernels into shared libraries.
+"""Build the port's native code into shared libraries, and launch its
+hand-written CUDA kernels.
 
-Each kernel source under ``legal_rag_tpu_torch/csrc/`` has a plain C
-entry point and is compiled by ``nvcc`` alone (no PyTorch headers, so a
-build takes seconds), then loaded with :mod:`ctypes`. Libraries land in
-``build/torch_kernels/<name>-<hash>/`` at the repository root, keyed by
-a hash of the source bytes, the headers beside them (``*.cuh``) and the
-compiler flags, so an edited source or header rebuilds and an unchanged
-one is reused. :class:`CudaKernel` holds one built library, its entry
-points' ctypes signatures and its counts of launches, direct and inside
-CUDA-graph replays (``utils/graphs.py``); :data:`KERNELS` lists every
-one.
+:func:`build_shared_library` compiles every native library of the port:
+each kernel source under ``legal_rag_tpu_torch/csrc/`` (a plain C entry
+point, compiled by ``nvcc`` alone, no PyTorch headers, so a build takes
+seconds) into ``build/torch_kernels/<name>-<hash>/``, and the host
+library of ``native_ext.py`` (g++) into ``build/torch_native/``. Each is
+keyed by a hash of its sources, the headers they include and the
+compiler flags, so an edited file rebuilds and an unchanged one is
+reused, and each is loaded with :mod:`ctypes`. :class:`CudaKernel`
+holds one built kernel library, its entry points' ctypes signatures,
+its launch (:meth:`CudaKernel.launch`) and its counts of launches,
+direct and inside CUDA-graph replays (``utils/graphs.py``);
+:data:`KERNELS` lists every one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -22,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,6 +42,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# one limit for every compile, nvcc's and g++'s: over six times the
+# slowest build, K3's 34 kernels (93 s on the H100 machine's host while
+# the other six kernels compile beside it; the host library takes 4 s)
+COMPILE_TIMEOUT_S = 600
+
 _locks: Dict[str, threading.Lock] = {}
 # every kernel library object, in creation order (each ops module makes
 # its own at import): a captured program reads their counters
@@ -46,7 +55,7 @@ _locks_guard = threading.Lock()
 
 
 def _lock_for(name: str) -> threading.Lock:
-    """One lock per library, so that different kernels build at once."""
+    """One lock per library, so that different libraries build at once."""
     with _locks_guard:
         return _locks.setdefault(name, threading.Lock())
 
@@ -69,40 +78,59 @@ def find_nvcc() -> str:
     )
 
 
-def build_shared_library(
-    name: str, sources: Sequence[Path]
-) -> Tuple[Path, str]:
-    """Compile ``sources`` into ``lib<name>.so``; returns the library
-    path and the compiler's log (kept beside the library, so a reused
-    build returns its log too). Raises ``RuntimeError`` carrying nvcc's
-    stderr on failure."""
+def library_path(name: str, files: Sequence[Path], flags: Sequence[str],
+                 build_dir: Path) -> Path:
+    """``build_dir/<name>-<hash>/lib<name>.so``, the hash over the bytes
+    of ``files`` in order and the flags."""
     h = hashlib.sha256()
-    for src in sources:
-        h.update(Path(src).read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"
-    lib = out_dir / f"lib{name}.so"
-    log = out_dir / "nvcc.log"
+    for f in files:
+        h.update(Path(f).read_bytes())
+    h.update(" ".join(flags).encode())
+    return build_dir / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def build_shared_library(
+    name: str, sources: Sequence[Path], *, hashed: Sequence[Path],
+    compiler: Callable[[], str], flags: Sequence[str], build_dir: Path,
+    log: str, force: bool = False,
+) -> Tuple[Path, str]:
+    """Compile ``sources`` with ``compiler()`` (its path; it raises
+    ``RuntimeError`` if there is none) and ``flags`` into
+    :func:`library_path`'s ``lib<name>.so``, keyed by the sources, the
+    files ``hashed`` (their headers) and the flags; a built one is
+    reused unless ``force``. One build of a library at a time, across
+    threads and processes. Returns the path and the compiler's log, kept
+    beside the library as ``log`` (a failed build's too). Raises
+    ``RuntimeError`` with the compiler's stderr on failure or past
+    ``COMPILE_TIMEOUT_S``."""
+    lib = library_path(name, [*sources, *hashed], flags, build_dir)
+    out_dir = lib.parent
+    log_path = out_dir / log
     with _lock_for(name):
-        if lib.is_file():
-            return lib, log.read_text() if log.is_file() else ""
         out_dir.mkdir(parents=True, exist_ok=True)
-        # build under a private name, then rename into place: a
-        # concurrent process never loads a half-written library
-        tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building {name}:\n"
-                f"{' '.join(cmd)}\n{proc.stderr}"
-            )
-        log.write_text(proc.stderr)
-        os.replace(tmp, lib)
-        return lib, proc.stderr
+        with open(out_dir / "lock", "w") as held:
+            fcntl.flock(held, fcntl.LOCK_EX)     # another process's build
+            if lib.is_file() and not force:
+                return lib, (log_path.read_text() if log_path.is_file()
+                             else "")
+            # build under a private name, then rename into place: a
+            # concurrent process never loads a half-written library
+            tmp = out_dir / f".lib{name}.{os.getpid()}.so"
+            cmd = [compiler(), *flags, "-o", str(tmp), *map(str, sources)]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=COMPILE_TIMEOUT_S)
+                status, stderr = f"exit {proc.returncode}", proc.stderr
+            except (subprocess.SubprocessError, OSError) as e:
+                status, stderr = "did not run to an end", str(e)
+            text = f"{' '.join(cmd)}\n{status}\n{stderr}"
+            log_path.write_text(text)
+            if status != "exit 0":
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"{Path(cmd[0]).name} {status} building {name}:\n{text}")
+            os.replace(tmp, lib)
+            return lib, text
 
 
 def current_stream(device_index: int) -> int:
@@ -124,9 +152,9 @@ class CudaKernel:
     builds and loads it on first use (under a lock; afterwards it is a
     plain attribute read) and declares each entry point's ctypes
     signature once (every one returns the CUDA error as an ``int``);
-    ``launches`` counts the launches its wrapper reports through
-    ``count_launch()``, a plain increment; ``build_log`` keeps nvcc's
-    report. Each entry point makes the tensor's device current only
+    :meth:`launch` calls an entry point, raises on its CUDA error and
+    counts the launch through ``count_launch()``, a plain increment
+    (``launches``); ``build_log`` keeps nvcc's report. Each entry point makes the tensor's device current only
     when it is not, and sets its kernels' attributes once per device
     (``csrc/setup.cuh``).
 
@@ -157,8 +185,10 @@ class CudaKernel:
         with self._lock:
             if self._lib is None:
                 path, self.build_log = build_shared_library(
-                    self.name, [CSRC_DIR / self.source]
-                )
+                    self.name, [CSRC_DIR / self.source],
+                    hashed=sorted(CSRC_DIR.glob("*.cuh")),
+                    compiler=find_nvcc, flags=NVCC_FLAGS,
+                    build_dir=BUILD_DIR, log="nvcc.log")
                 lib = ctypes.CDLL(str(path))
                 for fn_name, argtypes in self.signatures.items():
                     fn = getattr(lib, fn_name)
@@ -166,6 +196,16 @@ class CudaKernel:
                     fn.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
+
+    def launch(self, entry: str, *args, **counts) -> None:
+        """Call entry point ``entry`` with ``args``; raise
+        ``RuntimeError`` if it returns a CUDA error, else count the
+        launch (``count_launch(**counts)``)."""
+        err = getattr(self.library(), entry)(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: CUDA error {err}")
+        self.count_launch(**counts)
 
     def count_launch(self) -> None:
         self.launches += 1

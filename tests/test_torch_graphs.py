@@ -264,6 +264,48 @@ def test_capture_deltas_move_to_the_replay_counts():
         cuda_build.KERNELS.remove(kernel)
 
 
+class _StubLibrary:
+    """A loaded kernel library whose every entry point returns ``err``."""
+
+    def __init__(self, err):
+        self.calls = []
+        self.err = err
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append((entry, args)) or self.err
+
+
+@pytest.mark.parametrize("err", [0, 700])
+@pytest.mark.parametrize("kind", ["plain", "segmax_rm"])
+def test_launch_raises_on_a_cuda_error_and_counts_only_success(kind, err):
+    """``CudaKernel.launch``: an entry point that returns 0 counts one
+    launch (through the kernel's own ``count_launch``, with the
+    wrapper's keywords); one that returns a CUDA error raises with the
+    kernel's name and counts nothing."""
+    from legal_rag_tpu_torch.ops.segmax_rm import SegmaxKernel
+
+    kernel = _Counted() if kind == "plain" else SegmaxKernel()
+    counts = {} if kind == "plain" else {"int8": True, "tensor_cores": True}
+    try:
+        kernel._lib = _StubLibrary(err)
+        before = kernel.counts()
+        if err:
+            with pytest.raises(RuntimeError, match=(
+                    f"^{kernel.name} kernel launch failed: CUDA error 700$")):
+                kernel.launch("some_launch", 1, 2, **counts)
+        else:
+            kernel.launch("some_launch", 1, 2, **counts)
+        assert kernel._lib.calls == [("some_launch", (1, 2))]
+        added = {n: v - before[n] for n, v in kernel.counts().items()}
+        want = dict.fromkeys(added, 0)
+        if not err:
+            want.update({"launches": 1} if kind == "plain" else
+                        {"int8_launches": 1, "tensor_core_launches": 1})
+        assert added == want
+    finally:
+        cuda_build.KERNELS.remove(kernel)
+
+
 def test_every_kernel_is_listed_with_its_counters():
     from legal_rag_tpu_torch.ops.pq_segmax import K2
     from legal_rag_tpu_torch.ops.segmax_rm import K1

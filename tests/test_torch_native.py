@@ -5,8 +5,10 @@ a synthetic corpus in the five laws' shape and on the adversarial,
 Unicode fuzz, truncation, no-special and ``encode_batch`` cases of
 tests/test_native.py (copied here: that file's fixture reads a corpus
 this image lacks). Also the encoder's tokenizer choice, where the
-library is built and what it reads, and a store built by the JAX
-package with its native tokenizer, served by the port."""
+library is built and what it reads, how the port's one library builder
+(``utils/cuda_build.py build_shared_library``) reuses, forces, locks
+and fails, and a store built by the JAX package with its native
+tokenizer, served by the port."""
 
 import logging
 import random
@@ -186,13 +188,16 @@ _AUDIT = """
 import sys
 seen = []
 def hook(event, args):
-    if event in ("open", "ctypes.dlopen", "subprocess.Popen"):
-        seen.append(repr(args))
+    if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.rename"):
+        seen.append(f"{event} {args!r}")
 sys.addaudithook(hook)
 for name in ("jax", "legal_rag_tpu"):
     sys.modules[name] = None
 from legal_rag_tpu_torch import native_ext
 native_ext.build_native(force=True)
+forced = len(seen)
+native_ext.build_native()
+print(not [s for s in seen[forced:] if s.startswith("subprocess.Popen")])
 from legal_rag_tpu_torch.models.wordpiece import (
     WordPieceTokenizer, build_wordpiece_vocab)
 vocab = build_wordpiece_vocab(["alpha beta"], 100)
@@ -205,17 +210,25 @@ print("\\n".join(seen))
 
 
 def test_library_lies_under_build_and_reads_nothing_of_the_jax_package():
-    """A forced rebuild and a load, in a process where jax and the JAX
-    package cannot be imported: the library lies under ``build/`` (which
-    .gitignore lists), g++ compiles the port's copy, its pair encoder
-    and the BM25 postings gather, and no file under
-    ``legal_rag_tpu/`` is opened, loaded or handed to the compiler."""
+    """A forced rebuild, a build that reuses it and a load, in a process
+    where jax and the JAX package cannot be imported, through the
+    kernels' builder (``utils/cuda_build.py build_shared_library``): the
+    library lies under ``build/`` (which .gitignore lists), g++ compiles
+    the port's copy, its pair encoder and the BM25 postings gather under
+    a private name renamed into place, the unforced build runs no
+    compiler, and no file under ``legal_rag_tpu/`` is opened, loaded or
+    handed to the compiler."""
     out = subprocess.run([sys.executable, "-c", _AUDIT], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    same, lib, *seen = out.stdout.strip().splitlines()
+    reused, same, lib, *seen = out.stdout.strip().splitlines()
+    assert reused == "True"
     assert same == "True"
     lib = Path(lib)
+    renames = [s for s in seen if s.startswith("os.rename")]
+    assert len(renames) == 1
+    assert f"{lib.parent}/.libwordpiece." in renames[0]
+    assert f"'{lib}'" in renames[0]
     assert lib.is_file()
     assert lib.is_relative_to(REPO_ROOT / "build" / "torch_native")
     assert "build/" in (REPO_ROOT / ".gitignore").read_text().split()
@@ -225,6 +238,72 @@ def test_library_lies_under_build_and_reads_nothing_of_the_jax_package():
     jax_pkg = str(REPO_ROOT / "legal_rag_tpu") + "/"
     assert not [s for s in seen if jax_pkg in s]
     assert (lib.parent / "g++.log").is_file()
+
+
+@pytest.mark.parametrize("case", ["missing", "fails", "hangs"])
+def test_a_compiler_that_fails_leaves_the_python_path(tmp_path, monkeypatch,
+                                                      case):
+    """No compiler, one that exits nonzero and one past
+    ``COMPILE_TIMEOUT_S``: ``build_native`` returns False, not raising,
+    and leaves no library and no half-written one; a compiler that ran
+    leaves its log. ``build_shared_library`` itself raises, with the
+    compiler's stderr."""
+    from legal_rag_tpu_torch.utils import cuda_build
+
+    cxx = tmp_path / "cxx"
+    if case != "missing":
+        cxx.write_text("#!/bin/sh\necho broken >&2\nexit 3\n"
+                       if case == "fails" else "#!/bin/sh\nexec sleep 30\n")
+        cxx.chmod(0o755)
+    monkeypatch.setenv("CXX", str(cxx))
+    monkeypatch.setattr(native_ext, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "COMPILE_TIMEOUT_S", 1)
+    assert native_ext.build_native() is False
+    lib = native_ext.library_path()
+    assert lib.is_relative_to(tmp_path / "build")
+    assert not lib.exists()
+    assert not list(lib.parent.glob(".lib*"))
+    log = lib.parent / "g++.log"
+    assert log.is_file() == (case != "missing")
+    if case == "fails":
+        assert "exit 3\nbroken" in log.read_text()
+        with pytest.raises(RuntimeError, match="(?s)exit 3.*broken"):
+            cuda_build.build_shared_library(
+                "probe", [tmp_path / "cxx"], hashed=[],
+                compiler=native_ext.find_cxx, flags=(),
+                build_dir=tmp_path / "probe", log="cc.log")
+    elif case == "hangs":
+        assert "timed out after 1 seconds" in log.read_text()
+
+
+def test_concurrent_builds_run_the_compiler_once(tmp_path):
+    """Sixteen threads build one library at once (a fake compiler that
+    counts its runs and writes an empty library): the compiler runs
+    once, every thread gets the same path and log, and a forced build
+    runs it again."""
+    from legal_rag_tpu_torch.utils import cuda_build
+
+    cxx = tmp_path / "cxx"
+    cxx.write_text(f"#!/bin/sh\necho run >> {tmp_path}/runs\nsleep 0.2\n"
+                   'while [ "$1" != -o ]; do shift; done\n: > "$2"\n')
+    cxx.chmod(0o755)
+    src = tmp_path / "probe.cpp"
+    src.write_text("int probe() { return 0; }\n")
+
+    def build(force=False):
+        return cuda_build.build_shared_library(
+            "probe", [src], hashed=[], compiler=lambda: str(cxx),
+            flags=("-shared",), build_dir=tmp_path / "build", log="cc.log",
+            force=force)
+
+    with ThreadPoolExecutor(16) as pool:
+        got = list(pool.map(lambda _: build(), range(16)))
+    assert (tmp_path / "runs").read_text() == "run\n"
+    assert len(set(got)) == 1
+    lib, log = got[0]
+    assert lib.is_file() and log.startswith(f"{cxx} -shared -o ")
+    assert build(force=True)[0] == lib
+    assert (tmp_path / "runs").read_text() == "run\nrun\n"
 
 
 def test_jax_native_store_served_by_the_port(chunks, tmp_path):

@@ -43,14 +43,14 @@ def legal():
     return index, [qs[i:i + 64] for i in range(0, len(qs), 64)]
 
 
-def _verbatim(index, queries, cap):
-    budget = _pad_pow2(index.postings_budget(queries, cap=cap))
+def _verbatim(index, queries, cap, lo=8):
+    budget = _pad_pow2(index.postings_budget(queries, cap=cap), lo)
     return (budget, *index.gather_postings(queries, budget))
 
 
-def _assert_equal(index, queries, cap=CAP):
-    budget, ids, w = _verbatim(index, queries, cap)
-    got = gather_postings_batch(index, queries, cap=cap)
+def _assert_equal(index, queries, cap=CAP, lo=8):
+    budget, ids, w = _verbatim(index, queries, cap, lo)
+    got = gather_postings_batch(index, queries, cap=cap, lo=lo)
     assert got.impl == "native-cpp"
     assert got.budget == budget
     assert got.ids.dtype == np.int32 and got.weights.dtype == np.float32
@@ -81,18 +81,21 @@ def _csr(lists, n_docs, vocab=None):
         k1=1.5, b=0.75, epsilon=0.25)
 
 
-@pytest.mark.parametrize("cap", [CAP, 512, 64])
-def test_search64_batches_equal_the_verbatim_gather(legal, cap):
-    """Every batch at the served cap (no cut), and at caps that cut
-    most queries by weight."""
+@pytest.mark.parametrize(
+    "cap,lo", [(CAP, 8), (512, 8), (64, 8), (None, 8), (None, 64)],
+    ids=["131072", "512", "64", "uncapped", "uncapped-lo64"])
+def test_search64_batches_equal_the_verbatim_gather(legal, cap, lo):
+    """Every batch at the served cap (no cut), at caps that cut most
+    queries by weight, and with no cap at the floors of the
+    evaluation's BM25 ranking (8) and of ``bench.bench_inputs`` (64)."""
     index, batches = legal
     truncated = 0
     for batch in batches:
-        got = _assert_equal(index, batch, cap)
+        got = _assert_equal(index, batch, cap, lo)
         over = sum(t > got.budget for t in _totals(index, batch))
         assert got.truncated == over
         truncated += over
-    assert (truncated == 0) == (cap == CAP)
+    assert (truncated == 0) == (cap in (CAP, None))
 
 
 @pytest.mark.parametrize("q", [1, 8, 64])
