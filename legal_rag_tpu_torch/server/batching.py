@@ -5,15 +5,20 @@ matrix, one device program (SURVEY.md §7). The reference serves each
 HTTP request as its own sequential search (reference
 src/server/app.py:109 -> retrieval_engine.py:59); this coalescer
 applies the batched core AT the serving edge: concurrent ``/query`` /
-``/api/v1/batch_search`` requests that arrive within a few-millisecond
-window are concatenated into ONE ``search_batch`` device dispatch and
+``/api/v1/batch_search`` requests that arrive while a dispatch is in
+flight are concatenated into ONE ``search_batch`` device dispatch and
 the results are split back per caller.
 
-Thread-model: callers (server worker threads) block on an event; the
-flush runs on whichever thread triggers it (the max-batch submitter or
-the window timer), so there is no dedicated dispatcher thread to keep
-alive. Requests are grouped by ``(k, mode)`` — different shapes would
-recompile, not coalesce.
+Thread-model: a call that finds no dispatch in flight and no group
+pending runs its search at once, on its own thread. A call that arrives
+during a dispatch joins the pending group; the group's first call (its
+leader) waits until a dispatch in flight ends, or until ``window_s``
+after its own submit, whichever comes first, and then runs the group on
+its own thread. A submit that brings the pending queries to
+``max_batch`` runs them at once. The other callers block on an event,
+so there is no dispatcher or timer thread to keep alive. Requests are
+grouped by ``(k, mode)`` — different shapes would recompile, not
+coalesce.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ class RequestCoalescer:
 
     ``fn`` is the underlying batched search implementation with the
     signature ``fn(queries, k=..., hybrid_weights=..., mode=...)``
-    returning one result row per query.
+    returning one result row per query. ``window_s`` bounds how long a
+    call waits for company; ``max_batch`` bounds the queries a dispatch
+    gathers from calls that wait.
     """
 
     def __init__(
@@ -59,12 +66,18 @@ class RequestCoalescer:
         self._max = max_batch
         self._timeout = timeout_s
         self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
         self._pending: List[_Item] = []
-        self._timer: Optional[threading.Timer] = None
+        # dispatches running now, and how many have ended: a pending
+        # group's leader waits for the count of ended ones to move
+        self._in_flight = 0
+        self._ended = 0
         # observability: how many caller requests were served by how
-        # many device dispatches
+        # many device dispatches, and how many of those a lone call
+        # ran at once (nothing in flight, nothing pending)
         self.requests = 0
         self.dispatches = 0
+        self.dispatched_at_once = 0
         # each call's queue wait, from submit to the start of its
         # group's dispatch, as ``coalesce_wait`` on the engine's timer
         self.stage_timer = stage_timer
@@ -77,18 +90,20 @@ class RequestCoalescer:
         mode: str,
     ):
         item = _Item(queries, k, weights, mode)
-        run_now: Optional[List[_Item]] = None
+        batch: Optional[List[_Item]] = None
         with self._lock:
             self.requests += 1
+            lone = not self._pending and not self._in_flight
             self._pending.append(item)
-            if sum(len(i.queries) for i in self._pending) >= self._max:
-                run_now = self._drain_locked()
-            elif self._timer is None:
-                self._timer = threading.Timer(self._window, self._flush)
-                self._timer.daemon = True
-                self._timer.start()
-        if run_now:
-            self._run(run_now)
+            if lone:
+                self.dispatched_at_once += 1
+                batch = self._drain_locked()
+            elif sum(len(i.queries) for i in self._pending) >= self._max:
+                batch = self._drain_locked()
+            elif self._pending[0] is item:
+                batch = self._lead_locked(item)
+        if batch:
+            self._run(batch)
         if not item.event.wait(self._timeout):
             raise RuntimeError("coalesced search timed out")
         if item.error is not None:
@@ -97,20 +112,38 @@ class RequestCoalescer:
 
     # -- internals -----------------------------------------------------------
 
+    def _lead_locked(self, item: _Item) -> Optional[List[_Item]]:
+        """As the pending group's leader, wait until a dispatch in
+        flight ends or ``window_s`` has passed since ``item``'s submit;
+        then drain the group, unless a ``max_batch`` submit drained it
+        first."""
+        ended = self._ended
+        deadline = item.t_submit + self._window
+        while self._pending and self._pending[0] is item \
+                and self._ended == ended:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                break
+            self._cond.wait(left)
+        if self._pending and self._pending[0] is item:
+            return self._drain_locked()
+        return None
+
     def _drain_locked(self) -> List[_Item]:
         batch, self._pending = self._pending, []
-        if self._timer is not None:
-            self._timer.cancel()
-            self._timer = None
+        self._in_flight += 1
         return batch
 
-    def _flush(self) -> None:
-        with self._lock:
-            batch = self._drain_locked()
-        if batch:
-            self._run(batch)
-
     def _run(self, batch: List[_Item]) -> None:
+        try:
+            self._run_groups(batch)
+        finally:
+            with self._lock:
+                self._in_flight -= 1
+                self._ended += 1
+                self._cond.notify_all()
+
+    def _run_groups(self, batch: List[_Item]) -> None:
         groups: Dict[Tuple[int, str], List[_Item]] = {}
         for item in batch:
             groups.setdefault((item.k, item.mode), []).append(item)

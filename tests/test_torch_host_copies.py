@@ -14,7 +14,6 @@ COPIED_MODULES = [
     "config",
     "server",
     "server.app",
-    "server.batching",
     "server.adapter",
     "server.answer_units",
     "server.schemas",
@@ -161,8 +160,7 @@ _RESPOND = """\
 # lines the port adds to a copied module or object, mapped away before
 # the comparison: the server logs the CUDA graphs its warmup captured;
 # the served path's spans on the engine's StageTimer (the request, the
-# classifier, each search as its caller waits for it, the responder,
-# and each coalesced call's queue wait, stamped at submit)
+# classifier, each search as its caller waits for it, the responder)
 COPY_ADDITIONS = {
     "server.app": ((
         '            if engine.engine.graphs is not None:\n'
@@ -170,21 +168,6 @@ COPY_ADDITIONS = {
         '                # JAX server\'s warmup compiles them\n'
         '                logger.info("%s", engine.engine.graphs.summary())\n',
         ""),),
-    "server.batching": (
-        ("import time\n", ""),
-        ('    __slots__ += ("t_submit",)\n', ""),
-        ("        self.t_submit = time.perf_counter()\n", ""),
-        ("        stage_timer=None,\n", ""),
-        ("        # each call's queue wait, from submit to the start of its\n"
-         "        # group's dispatch, as ``coalesce_wait`` on the engine's timer\n"
-         "        self.stage_timer = stage_timer\n", ""),
-        ("                if self.stage_timer is not None:\n"
-         "                    now = time.perf_counter()\n"
-         "                    for it in items:\n"
-         '                        self.stage_timer.add("coalesce_wait",\n'
-         "                                             now - it.t_submit)\n",
-         ""),
-    ),
     "retrieval.orchestrator": (
         _under('        with self.engine.timer.stage("classify"):\n',
                "        intent = self.classifier.classify(query)\n"),

@@ -55,33 +55,39 @@ def legal():
 
 
 def test_coalesce_wait_is_one_entry_a_call_from_submit_to_its_dispatch():
-    """Three submitters in one window, two groups (by k) run in turn on
-    the window's timer thread: three waits, and the group that ran
-    second waited at least the first group's whole dispatch."""
+    """One call dispatched at once on its own thread; two submitters
+    during its dispatch gathered behind it, their two groups (by k) run
+    in turn on the leader's thread once it ends: three waits, the first
+    near zero, and the group that ran second waited at least the first
+    group's whole dispatch."""
     timer = StageTimer()
     dispatch_s = 0.3
+    running = threading.Event()
 
     def fn(queries, k, hybrid_weights, mode):
+        running.set()
         time.sleep(dispatch_s)
         return [[(q, k)] for q in queries]
 
     co = RequestCoalescer(fn, window_s=0.5, max_batch=64, stage_timer=timer)
-    start = threading.Barrier(3)
     got = {}
 
     def call(name, k):
-        start.wait(timeout=30)
         got[name] = co.submit([name], k, [0.5], "rrf")
 
-    threads = [threading.Thread(target=call, args=a)
-               for a in (("a", 1), ("b", 1), ("c", 2))]
-    for t in threads:
+    first = threading.Thread(target=call, args=("a", 1))
+    first.start()
+    assert running.wait(timeout=30)
+    assert timer.snapshot()["coalesce_wait"]["last_ms"] < 1e3 * dispatch_s
+    threads = [first] + [threading.Thread(target=call, args=a)
+                         for a in (("b", 1), ("c", 2))]
+    for t in threads[1:]:
         t.start()
     for t in threads:
         t.join(timeout=30)
     assert not any(t.is_alive() for t in threads)
     assert got == {"a": [[("a", 1)]], "b": [[("b", 1)]], "c": [[("c", 2)]]}
-    assert (co.requests, co.dispatches) == (3, 2)
+    assert (co.requests, co.dispatches, co.dispatched_at_once) == (3, 3, 1)
     snap = timer.snapshot()["coalesce_wait"]
     assert snap["count"] == 3
     # the last wait recorded is of the group that ran second
@@ -229,8 +235,9 @@ def test_readers_of_a_program_without_the_spans_read_nothing():
 def test_spans_reach_an_all_threads_trace_on_their_own_threads(
         legal, monkeypatch, tmp_path):
     """Under ``LEGAL_RAG_PROFILE``, a profiler started on all threads
-    holds the request's ranges on the pool worker that served it and the
-    search's on the coalescer's timer thread that dispatched it."""
+    holds the request's ranges on the pool worker that served it, and the
+    search's there too: with nothing in flight, the worker that submitted
+    the search dispatched it itself."""
     from torch._C._profiler import _ExperimentalConfig
 
     monkeypatch.setenv("LEGAL_RAG_PROFILE", "1")
@@ -262,10 +269,10 @@ def test_spans_reach_an_all_threads_trace_on_their_own_threads(
         if e.get("ph") == "X" and e.get("cat") == "user_annotation":
             tids.setdefault(e["name"], set()).add(e["tid"])
     worker = threads["worker"]
-    timer_thread, kind = threads["dispatch"]
-    assert kind is threading.Timer and timer_thread != worker
+    dispatcher, kind = threads["dispatch"]
+    assert dispatcher == worker and not issubclass(kind, threading.Timer)
     assert worker in tids["request"] and worker in tids["classify"]
-    assert timer_thread in tids["device_search"]
+    assert worker in tids["device_search"]
     # the pair encoding: one range, inside the request's one ce range
     ranges = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
                      if e.get("ph") == "X" and e.get("name") == name
@@ -296,7 +303,7 @@ def test_graph_wait_is_inside_the_spans_that_replay(monkeypatch, tmp_path):
         legal.query(q, k=5)             # captured
     monkeypatch.setenv("LEGAL_RAG_PROFILE", "1")
     legal.timer.reset()
-    # the searches run on the coalescer's timer threads
+    # the searches run on the threads that submit them
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU],
             experimental_config=_ExperimentalConfig(
