@@ -9,7 +9,7 @@ The counterpart of ``legal_rag_tpu/native_ext.py``: ``NativeWordPiece``
 and the tables' generator, verbatim copies of the JAX package's, the
 port's own ``wordpiece_pairs.cpp``, the cross-encoder's pair encoding on
 top of ``wp_encode``, and ``postings_gather.cpp``, a query batch's BM25
-postings). ``g++ -O2 -std=c++17 -fPIC -shared`` compiles the sources
+postings, each row past the budget cut by weight in the same call). ``g++ -O2 -std=c++17 -fPIC -shared`` compiles the sources
 into one library on first use, never at import, into
 ``build/torch_native/wordpiece-<hash>/`` at the repository root, keyed
 by a hash of the sources and the flags, through the builder that builds
@@ -118,7 +118,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bm25_gather_postings.restype = ctypes.c_int32
     lib.bm25_gather_postings.argtypes = [
         ptr, ptr, ptr, ctypes.c_int64, ptr, ptr, ptr, ctypes.c_int32,
-        ctypes.c_int64, ptr, ptr, ptr, ptr, ptr, ptr,
+        ctypes.c_int64, ptr, ptr, ptr, ptr, ptr,
     ]
     return lib
 
@@ -205,18 +205,20 @@ def native_available() -> bool:
 def gather_postings(
     terms: np.ndarray, mult: np.ndarray, term_offsets: np.ndarray,
     indptr: np.ndarray, doc_ids: np.ndarray, weights: np.ndarray,
-    n_docs: int, budget: int, spill_offsets: np.ndarray,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    n_docs: int, budget: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, float]:
     """A query batch's postings in one C++ call without the GIL
     (``native/postings_gather.cpp``): query ``q``'s distinct terms
     ``terms[term_offsets[q]:term_offsets[q + 1]]`` (int64) with their
     multiplicities ``mult`` (float32), over the CSR ``indptr`` (int64),
     ``doc_ids`` (int32) and ``weights`` (float32). Returns ``(ids [Q,
-    budget] int32, weights [Q, budget] float32, totals [Q] int64,
-    spill_ids, spill_w)``: a row whose total passes ``budget`` is left
-    unwritten, its postings flat in the spill arrays at
-    ``spill_offsets[q]:spill_offsets[q + 1]``, which must hold its
-    total. Raises RuntimeError if the library is unavailable."""
+    budget] int32, weights [Q, budget] float32, totals [Q] int64, cut [Q]
+    uint8, cut_s)``: a row whose total passes ``budget`` is cut by weight
+    under ``ops.sparse.cut_by_weight``'s rule, ``cut`` is 0 for a row that
+    fits, 1 for a row cut and 2 for a row cut inside a group of equal
+    weights, and ``cut_s`` the seconds the call spent on the rows it cut.
+    Raises ValueError if a row past the budget holds a negative or NaN
+    weight, RuntimeError if the library is unavailable."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native library unavailable")
@@ -224,11 +226,10 @@ def gather_postings(
     terms = np.ascontiguousarray(terms, np.int64)
     mult = np.ascontiguousarray(mult, np.float32)
     term_offsets = np.ascontiguousarray(term_offsets, np.int64)
-    spill_offsets = np.ascontiguousarray(spill_offsets, np.int64)
     indptr = np.ascontiguousarray(indptr, np.int64)
     doc_ids = np.ascontiguousarray(doc_ids, np.int32)
     weights = np.ascontiguousarray(weights, np.float32)
-    if (q < 0 or len(spill_offsets) != q + 1 or len(mult) != len(terms)
+    if (q < 0 or len(mult) != len(terms)
             or term_offsets[0] != 0 or term_offsets[-1] != len(terms)
             or np.any(np.diff(term_offsets) < 0) or budget < 1
             or len(doc_ids) != len(weights) or indptr[-1] > len(doc_ids)):
@@ -238,15 +239,15 @@ def gather_postings(
     out_ids = np.empty((q, budget), np.int32)
     out_w = np.empty((q, budget), np.float32)
     totals = np.empty(q, np.int64)
-    spill_ids = np.empty(int(spill_offsets[-1]), np.int32)
-    spill_w = np.empty(int(spill_offsets[-1]), np.float32)
+    cut = np.empty(q, np.uint8)
+    cut_s = ctypes.c_double(0.0)
     rc = lib.bm25_gather_postings(
         terms.ctypes.data, mult.ctypes.data, term_offsets.ctypes.data, q,
         indptr.ctypes.data, doc_ids.ctypes.data, weights.ctypes.data,
         n_docs, budget, out_ids.ctypes.data, out_w.ctypes.data,
-        totals.ctypes.data, spill_offsets.ctypes.data, spill_ids.ctypes.data,
-        spill_w.ctypes.data,
+        totals.ctypes.data, cut.ctypes.data, ctypes.byref(cut_s),
     )
     if rc != 0:
-        raise ValueError("spill_offsets do not hold the over-budget totals")
-    return out_ids, out_w, totals, spill_ids, spill_w
+        raise ValueError("a query past the budget has a negative or NaN "
+                         "posting weight")
+    return out_ids, out_w, totals, cut, cut_s.value

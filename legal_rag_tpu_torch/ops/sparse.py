@@ -4,7 +4,8 @@ The host side (``tokenize``, :class:`BM25Index`, :func:`build_bm25`) is
 the JAX package's code verbatim: the index is plain numpy and the
 serving path gathers postings on the host, through
 :func:`gather_postings_batch`, the port's own: the verbatim budget and
-gather bit for bit, in one C++ call a batch. The device side:
+gather, in one C++ call a batch, with the cut at the budget under the
+written rule of :func:`cut_by_weight`. The device side:
 
 - :func:`bm25_gather_postings_device`, the ``[Q, P]`` postings batch
   built on the device from postings resident there and the host's
@@ -20,6 +21,7 @@ gather bit for bit, in one C++ call a batch. The device side:
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import Counter
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -238,23 +240,85 @@ class GatheredPostings(NamedTuple):
     ids: np.ndarray           # [Q, budget] int32, padded with n_docs
     weights: np.ndarray       # [Q, budget] float32, padded with 0
     impl: str                 # "native-cpp" or "python"
-    truncated: int            # queries cut at the budget (native path)
+    truncated: int            # queries cut at the budget
+    ties: int                 # of those, cut inside a group of equal weights
+    cut_s: float              # seconds spent on the cut rows
+
+
+def cut_by_weight(w: np.ndarray, budget: int) -> np.ndarray:
+    """The positions of a query's postings that a budget keeps.
+
+    ``w``: the float32 weights of the query's gathered postings in gather
+    order (its distinct terms in first appearance, each term's postings
+    in CSR order; ``weights[p] * mult`` as the gather forms them). With
+    ``c`` the ``budget``-th largest weight, every posting above ``c`` is
+    kept, and of those equal to ``c`` the first ``budget - count(w > c)``
+    in gather order. Returns the kept positions ascending, so the cut row
+    keeps the gather order; all of them where ``len(w) <= budget``.
+
+    This is the served cut (``native/postings_gather.cpp`` writes the
+    same rows). The verbatim ``BM25Index.gather_postings`` keeps the same
+    postings above ``c`` and as many of weight ``c``, but which of those
+    it keeps where not all fit is whatever ``np.argpartition`` leaves on
+    the kept side: that choice is the one departure. (It also leaves a
+    cut row in the partition's order, which the scatter's fixed-point
+    sums do not see.) Weights must not be negative (BM25's idf floor is
+    positive): a negative or NaN weight raises ValueError."""
+    w = np.asarray(w, np.float32)
+    if not (w >= 0).all():
+        raise ValueError("posting weights must be non-negative")
+    if len(w) <= budget:
+        return np.arange(len(w))
+    c = np.partition(w, len(w) - budget)[len(w) - budget]
+    keep = w > c
+    at_cut = np.flatnonzero(w == c)
+    keep[at_cut[:budget - np.count_nonzero(keep)]] = True
+    return np.flatnonzero(keep)
+
+
+def _gather_python(index: BM25Index, terms: np.ndarray, mult: np.ndarray,
+                   offsets: np.ndarray, budget: int):
+    """The native call's rows, cut count, tie count and cut seconds in
+    numpy: each query gathered uncut as ``BM25Index.gather_postings``
+    gathers it, then cut by :func:`cut_by_weight`."""
+    q = len(offsets) - 1
+    out_ids = np.full((q, budget), index.n_docs, np.int32)
+    out_w = np.zeros((q, budget), np.float32)
+    truncated = ties = 0
+    cut_s = 0.0
+    for qi in range(q):
+        t = terms[offsets[qi]:offsets[qi + 1]]
+        starts = index.indptr[t]
+        lens = index.indptr[t + 1] - starts
+        total = int(lens.sum())
+        seg = np.repeat(np.arange(len(t)), lens)
+        idx = starts[seg] + np.arange(total) - (np.cumsum(lens) - lens)[seg]
+        ids = index.doc_ids[idx]
+        w = index.weights[idx] * mult[offsets[qi]:offsets[qi + 1]][seg]
+        if total > budget:
+            start = time.perf_counter()
+            keep = cut_by_weight(w, budget)
+            truncated += 1
+            ties += int(np.count_nonzero(w >= w[keep].min()) > budget)
+            ids, w = ids[keep], w[keep]
+            cut_s += time.perf_counter() - start
+        out_ids[qi, :len(ids)] = ids
+        out_w[qi, :len(w)] = w
+    return out_ids, out_w, truncated, ties, cut_s
 
 
 def gather_postings_batch(
     index: BM25Index, queries: Sequence[str], cap: Optional[int] = None,
     lo: int = 8,
 ) -> GatheredPostings:
-    """A query batch's postings: the budget of
-    ``_pad_pow2(index.postings_budget(queries, cap), lo)`` and
-    ``index.gather_postings(queries, budget)``, equal to them bit for
-    bit, with each query tokenized once and the whole batch gathered in
-    one GIL-free C++ call (``native_ext.gather_postings``). A query past
-    the budget is cut as the verbatim code cuts it, by
-    ``np.argpartition`` on the same float32 weights, so ties at the cut
-    fall the same way. Where the native library does not build, it runs
-    ``index.gather_postings`` at that budget (``impl`` "python",
-    ``truncated`` 0: that path does not report its cuts)."""
+    """A query batch's postings at the budget of
+    ``_pad_pow2(index.postings_budget(queries, cap), lo)``, with each
+    query tokenized once and the whole batch gathered in one GIL-free C++
+    call (``native_ext.gather_postings``). A query that fits is gathered
+    as ``index.gather_postings`` gathers it, bit for bit; a query past the
+    budget is cut by :func:`cut_by_weight`'s rule inside that call. Where
+    the native library does not build, numpy gathers each query uncut and
+    applies :func:`cut_by_weight` (``impl`` "python"): the same arrays."""
     terms: List[int] = []
     mult: List[int] = []
     offsets = [0]
@@ -265,6 +329,7 @@ def gather_postings_batch(
         mult.extend(counts.values())
         offsets.append(len(terms))
     terms_a = np.array(terms, np.int64)
+    mult_a = np.array(mult, np.float32)
     offsets_a = np.array(offsets, np.int64)
     lens = index.indptr[terms_a + 1] - index.indptr[terms_a]
     ends = np.zeros(len(terms) + 1, np.int64)
@@ -277,22 +342,16 @@ def gather_postings_batch(
         budget = min(budget, _pow2_at_least(cap))
     budget = _pow2_at_least(max(budget, lo))
     if not native_ext.native_available():
-        ids, w = index.gather_postings(queries, budget)
-        return GatheredPostings(budget, ids, w, "python", 0)
-    over = np.flatnonzero(totals > budget)
-    spill = np.zeros(len(queries) + 1, np.int64)
-    spill[over + 1] = totals[over]
-    np.cumsum(spill, out=spill)
-    ids, w, _, spill_ids, spill_w = native_ext.gather_postings(
-        terms_a, np.array(mult, np.float32), offsets_a, index.indptr,
-        index.doc_ids, index.weights, index.n_docs, budget, spill)
-    for qi in over:
-        s, e = spill[qi], spill[qi + 1]
-        flat_w = spill_w[s:e]
-        keep = np.argpartition(-flat_w, budget - 1)[:budget]
-        ids[qi] = spill_ids[s:e][keep]
-        w[qi] = flat_w[keep]
-    return GatheredPostings(budget, ids, w, "native-cpp", len(over))
+        ids, w, truncated, ties, cut_s = _gather_python(
+            index, terms_a, mult_a, offsets_a, budget)
+        return GatheredPostings(budget, ids, w, "python", truncated, ties,
+                                cut_s)
+    ids, w, _, cut, cut_s = native_ext.gather_postings(
+        terms_a, mult_a, offsets_a, index.indptr, index.doc_ids,
+        index.weights, index.n_docs, budget)
+    return GatheredPostings(budget, ids, w, "native-cpp",
+                            int(np.count_nonzero(cut)),
+                            int(np.count_nonzero(cut == 2)), cut_s)
 
 
 # the fixed-point sums' fraction bits: a posting's weight is kept to

@@ -29,15 +29,18 @@ A dispatch gathers its BM25 postings on the host through
 :func:`legal_rag_tpu_torch.ops.sparse.gather_postings_batch`, one C++
 call a batch where the native library builds (``postings_gathers``
 counts the calls by implementation, ``postings_truncated`` the queries
-cut at the budget).
+cut at the budget, ``postings_cut_ties`` those cut inside a group of
+equal weights; :meth:`postings_counters` reads the three).
 
 The engine's ``timer`` is the served path's one ``StageTimer`` (``/health``
 and the benchmark read it): ``search`` around each ``search_batch`` call
 as its caller waits for it, ``coalesce_wait`` (each coalesced call's
 queue wait), ``encode``, ``postings``, ``device_search``,
-``int8_rescore`` and ``assemble`` in a dispatch, ``graph_wait`` (the
-graph set's lock) and ``graph_fill`` (the inputs' staging) inside the
-spans that replay; the facade adds
+``int8_rescore`` and ``assemble`` in a dispatch, ``postings_cut`` (the
+cut's time inside ``postings``, in a dispatch that cut a query; measured
+by the gather itself, so recorded with ``StageTimer.add``), ``graph_wait``
+(the graph set's lock) and ``graph_fill`` (the inputs' staging) inside
+the spans that replay; the facade adds
 ``request``, ``classify``, ``ce`` and ``respond``.
 
 The late-interaction modes run over the store's token slab
@@ -119,9 +122,12 @@ class RetrievalEngine:
         self.device = torch.device(device)
         self.timer = StageTimer()
         # the served search's host postings gathers by implementation,
-        # and the queries they cut at the budget (the native path's)
+        # the queries they cut at the budget, and of those the queries
+        # whose cut fell inside a group of equal weights (the tie rule of
+        # ops.sparse.cut_by_weight decided what was kept)
         self.postings_gathers = {"native-cpp": 0, "python": 0}
         self.postings_truncated = 0
+        self.postings_cut_ties = 0
         self._count_lock = threading.Lock()
         if encoder is None:
             enc_cfg = config.encoder
@@ -199,6 +205,15 @@ class RetrievalEngine:
         if any(d != graphs.device for d in self.mesh.devices.flat):
             return None
         return graphs
+
+    def postings_counters(self) -> Dict:
+        """The host postings gather's counters (``/health`` shows them):
+        gathers by implementation, queries cut at the budget, and of
+        those the queries cut inside a group of equal weights."""
+        with self._count_lock:
+            return {"gathers": dict(self.postings_gathers),
+                    "truncated": self.postings_truncated,
+                    "cut_ties": self.postings_cut_ties}
 
     # -- native batched API -------------------------------------------------
 
@@ -306,12 +321,17 @@ class RetrievalEngine:
         if self.index.pq_rotation is not None:
             q_dev = np.asarray(q_emb, np.float32) @ self.index.pq_rotation
         with self.timer.stage("postings"):
-            budget, post_ids, post_w, impl, truncated = gather_postings_batch(
+            post = gather_postings_batch(
                 self.store.bm25, queries, cap=cfg.bm25.postings_budget_cap
             )
+            if post.truncated:
+                # measured inside the GIL-free call: no profiler range
+                self.timer.add("postings_cut", post.cut_s)
+        budget, post_ids, post_w = post.budget, post.ids, post.weights
         with self._count_lock:
-            self.postings_gathers[impl] += 1
-            self.postings_truncated += truncated
+            self.postings_gathers[post.impl] += 1
+            self.postings_truncated += post.truncated
+            self.postings_cut_ties += post.ties
         with self.timer.stage("device_search"):
             c = max(cfg.fusion.candidate_multiplier * k_dev, k_dev)
             idx = self.index

@@ -190,6 +190,7 @@ class HttpApp:
             payload["stage_latency"] = (
                 self.host.engine.engine.timer.snapshot()
             )
+            payload["postings"] = self.host.engine.engine.postings_counters()
             coal = getattr(self.host.engine.engine, "_coalescer", None)
             if coal is not None:
                 payload["coalescing"] = {

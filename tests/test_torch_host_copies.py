@@ -158,8 +158,9 @@ _RESPOND = """\
 """
 
 # lines the port adds to a copied module or object, mapped away before
-# the comparison: the server logs the CUDA graphs its warmup captured;
-# the served path's spans on the engine's StageTimer (the request, the
+# the comparison: the server logs the CUDA graphs its warmup captured,
+# and its /health shows the postings gather's counters; the served
+# path's spans on the engine's StageTimer (the request, the
 # classifier, each search as its caller waits for it, the responder)
 COPY_ADDITIONS = {
     "server.app": ((
@@ -167,7 +168,10 @@ COPY_ADDITIONS = {
         '                # the buckets the warmup touched are captured, as the\n'
         '                # JAX server\'s warmup compiles them\n'
         '                logger.info("%s", engine.engine.graphs.summary())\n',
-        ""),),
+        ""), (
+        '            payload["postings"] = '
+        'self.host.engine.engine.postings_counters()\n',
+        "")),
     "retrieval.orchestrator": (
         _under('        with self.engine.timer.stage("classify"):\n',
                "        intent = self.classifier.classify(query)\n"),
